@@ -1,0 +1,136 @@
+"""Rules of the port: it imports neither JAX nor the JAX package, its entry
+points run on the card or raise, and what it has not ported raises instead
+of computing something else."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from versalignlib_tpu_torch import AlignmentEngine, AlignmentParameters
+from versalignlib_tpu_torch.ops import _build, cuda_align, cuda_score, plain
+from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS
+from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+_FORBIDDEN = {"jax", "jaxlib", "versalignlib_tpu"}
+
+
+def _port_sources():
+    files = sorted((ROOT / "versalignlib_tpu_torch").rglob("*.py"))
+    return files + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_jax_imports_anywhere_in_the_port():
+    offenders = []
+    files = _port_sources()
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in _FORBIDDEN:
+                    offenders.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['versalignlib_tpu'] = None\n"
+        "import versalignlib_tpu_torch, versalignlib_tpu_torch.dispatch\n"
+        "from versalignlib_tpu_torch.ops import cuda_backend, cuda_align, cuda_score, plain\n"
+        "from versalignlib_tpu_torch.utils import capabilities, logging\n"
+        "from versalignlib_tpu_torch import native\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_engine_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlignmentEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlignmentEngine(backend="auto", device="cuda:0")
+    assert AlignmentEngine(device="cpu").backend.name == "cuda"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    code = ("import sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "import chip_smoke\n"
+            "sys.exit(chip_smoke.main())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "kernels" not in out.stdout
+
+
+def test_cuda_tensors_launch_or_raise_never_the_plain_version(monkeypatch):
+    calls = []
+    monkeypatch.setattr(plain, "score_batch", lambda *a: calls.append(a))
+    monkeypatch.setattr(plain, "align_batch", lambda *a: calls.append(a))
+    reads = np.ones((2, 5), np.uint8)
+    refs = np.ones((2, 6), np.uint8)
+    cuda = torch.device("cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            cuda_score.CudaScorer(cuda)(reads, refs, DEFAULT_PARAMETERS,
+                                        Algorithm.SMITH_WATERMAN)
+        with pytest.raises((RuntimeError, AssertionError)):
+            cuda_align.align_batch(reads, refs, DEFAULT_PARAMETERS,
+                                   Algorithm.SMITH_WATERMAN, device=cuda)
+    assert calls == []
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    kernel = _build.CudaKernel("score.cu", "val_score_launch", [])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel.launch()
+    assert kernel.launches == 0
+
+
+def test_unported_modes_raise():
+    reads = np.ones((2, 5), np.uint8)
+    refs = np.ones((2, 6), np.uint8)
+    with pytest.raises(NotImplementedError, match="A5"):
+        AlignmentEngine(device="cpu", device_walk=True).compute_alignments(
+            Algorithm.SMITH_WATERMAN, reads, refs)
+    affine = AlignmentParameters(gap_open_read=-4, gap_open_ref=-4)
+    matrix = AlignmentParameters(matrix=((0, 0, 0), (0, 1, -1), (0, -1, 1)))
+    for p in (affine, matrix):
+        engine = AlignmentEngine(p, device="cpu")
+        with pytest.raises(NotImplementedError, match="A6"):
+            engine.score_alignments(Algorithm.SMITH_WATERMAN, reads, refs)
+        for tie in TieBreak:
+            with pytest.raises(NotImplementedError, match="A6"):
+                AlignmentEngine(p, tie=tie, device="cpu").compute_alignments(
+                    Algorithm.NEEDLEMAN_WUNSCH, reads, refs, raw=True)
+
+
+def test_registry():
+    from versalignlib_tpu_torch import dispatch
+
+    assert dispatch.available_backends("cpu") == ["cuda"]
+    assert dispatch.get_backend("auto", "cpu").name == "cuda"
+    with pytest.raises(KeyError):
+        dispatch.get_backend("pallas", "cpu")

@@ -1,0 +1,91 @@
+"""Sequence encoding: ASCII bases -> small integer codes.
+
+The port's copy of what the alignment path needs from
+``versalignlib_tpu/alphabet.py``. It replicates the reference's 256-entry
+``char_to_score`` table (DefaultKernel.h:43-60): case-insensitive A->1, T->2,
+C->3, G->4, N->5, everything else (including the ``'\\0'`` batch padding)
+-> 0. Codes 0 and 5 score zero against everything (DefaultKernel.h:83-96),
+so code 0 doubles as the padding sentinel.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+#: Number of distinct codes (SCORE_CASE, DefaultKernel.h:27).
+NUM_CODES = 6
+#: Code for padding / non-ACGTN characters.
+INVALID = 0
+#: Code for the ambiguous base N (scores zero but is NOT padding).
+N_CODE = 5
+
+_CHAR_TO_CODE = np.zeros(256, dtype=np.uint8)
+for _ch, _code in (("A", 1), ("T", 2), ("C", 3), ("G", 4), ("N", 5)):
+    _CHAR_TO_CODE[ord(_ch)] = _code
+    _CHAR_TO_CODE[ord(_ch.lower())] = _code
+
+
+def encode(seq: str | bytes) -> np.ndarray:
+    """Encode one sequence to a uint8 code array."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii", errors="replace")
+    return _CHAR_TO_CODE[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def pad_and_encode(
+    seqs: Sequence[str | bytes], length: int | None = None
+) -> np.ndarray:
+    """Encode a batch, padding every sequence with code 0 to a uniform length
+    (the reference's ``pad()``, versalignUtil.cpp:17-33). Returns a
+    ``(n, length)`` uint8 array."""
+    encoded = [encode(s) for s in seqs]
+    maxlen = max((e.size for e in encoded), default=0)
+    if length is None:
+        length = maxlen
+    elif length < maxlen:
+        raise ValueError(f"length={length} < longest sequence ({maxlen})")
+    out = np.zeros((len(encoded), length), dtype=np.uint8)
+    for i, e in enumerate(encoded):
+        out[i, : e.size] = e
+    return out
+
+
+def base_score_matrix(score_match: int, score_mismatch: int) -> np.ndarray:
+    """The 6x6 substitution matrix (DefaultKernel.h:83-96), int32."""
+    m = np.full((NUM_CODES, NUM_CODES), score_mismatch, dtype=np.int32)
+    np.fill_diagonal(m, score_match)
+    m[INVALID, :] = 0
+    m[:, INVALID] = 0
+    m[N_CODE, :] = 0
+    m[:, N_CODE] = 0
+    return m
+
+
+def valid_code_mask(matrix=None) -> np.ndarray:
+    """(S,) bool: code can contribute a nonzero substitution score — the SSE
+    flavor's "both bases A/C/G/T" DIAG gate (SSEKernel.cpp:364-379),
+    generalised to a custom S x S matrix."""
+    m = base_score_matrix(1, -1) if matrix is None else np.asarray(matrix, np.int64)
+    return (m != 0).any(axis=1) | (m != 0).any(axis=0)
+
+
+def make_validity(matrix=None):
+    """Elementwise validity predicate over code arrays (numpy or torch):
+    :func:`valid_code_mask` as pure comparisons. Codes outside [0, S) are
+    invalid."""
+    idx = np.flatnonzero(valid_code_mask(matrix))
+    if idx.size == 0:
+        return lambda c: c < 0  # all-False of the right shape and type
+    if idx.size == idx[-1] - idx[0] + 1:  # contiguous range (the common case)
+        lo, hi = int(idx[0]), int(idx[-1])
+        return lambda c: (c >= lo) & (c <= hi)
+
+    def f(c):
+        v = c < 0
+        for s in idx:
+            v = v | (c == int(s))
+        return v
+
+    return f

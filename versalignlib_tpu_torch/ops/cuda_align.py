@@ -1,0 +1,217 @@
+"""Full alignment through ``csrc/align.cu`` and the host decoder — the
+counterpart of the linear half of ``versalignlib_tpu/ops/pallas_align.py``
+(``pallas_align_batch``, ``_decode_chunk``).
+
+The device fills packed pointer words, the aux word and (NW) ``hsel``; the
+host derives each pair's traceback start cell and score from them and walks
+the pointers with the native decoder. Pairs go through in chunks sized by a
+budget of device memory, and the fill of chunk k+1 is queued before chunk k
+is decoded, so the card works while the host walks.
+
+A tensor on the CPU goes to :func:`plain.align_batch`; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from versalignlib_tpu_torch.alphabet import make_validity
+from versalignlib_tpu_torch.native import decode_batch_native
+from versalignlib_tpu_torch.ops import plain
+from versalignlib_tpu_torch.ops import traceback as tb
+from versalignlib_tpu_torch.ops._build import CudaKernel
+from versalignlib_tpu_torch.ops.cuda_score import check_codes, check_supported
+from versalignlib_tpu_torch.params import AlignmentParameters
+from versalignlib_tpu_torch.types import Algorithm, AlignmentBatch, TieBreak
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: The pointer-fill kernel; ``ALIGN_KERNEL.launches`` counts its launches.
+ALIGN_KERNEL = CudaKernel(
+    "align.cu", "val_align_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+
+PACK = plain.PACK
+
+#: Packed pointer bytes per chunk: 256 MiB is 4096 pairs at 512 x 512.
+CHUNK_PTR_BYTES = 256 << 20
+
+
+def align_mem_plan(m: int, n: int, batch: int) -> int:
+    """Device bytes the fill allocates for ``batch`` pairs of m x n: the
+    codes and their pair-interleaved copies, mrp, the (n, B) H row, the
+    packed pointers, aux and hsel."""
+    nc = -(-n // PACK)
+    return batch * (2 * (m + n) + 4 + 4 * n + 4 * m * nc + 16 + 4 * (n + 1))
+
+
+def chunk_pairs_for(m: int, n: int, sm_count: int) -> int:
+    """Pairs per device round: as many as :data:`CHUNK_PTR_BYTES` of packed
+    pointers hold, in whole warps of 32, but never fewer than one warp per
+    SM: the kernel runs one thread per pair, and a smaller launch leaves SMs
+    idle for the same time (PERF.md)."""
+    per_pair = 4 * m * -(-n // PACK)
+    return max(32 * sm_count, CHUNK_PTR_BYTES // per_pair // 32 * 32)
+
+
+def last_valid_pos(codes: np.ndarray, tie: TieBreak) -> np.ndarray:
+    """The reference's max_*_pos: the index before the first invalid code,
+    else len-1. Canonical flavor: any code but 0 is valid; SSE flavor: only
+    A/C/G/T (pallas_align.py:508-522)."""
+    if TieBreak(tie) == TieBreak.DIAG_UP_LEFT:
+        invalid = codes == 0
+    else:
+        invalid = ~make_validity()(codes)
+    any_inv = invalid.any(axis=1)
+    return np.where(any_inv, invalid.argmax(axis=1) - 1,
+                    codes.shape[1] - 1).astype(np.int32)
+
+
+def fill(reads: torch.Tensor, refs: torch.Tensor, mrp: torch.Tensor,
+         params: AlignmentParameters, algorithm: Algorithm, tie: TieBreak):
+    """Pointer fill of (B, m), (B, n) uint8 codes with (B,) int32 mrp, on
+    their device: ``(ptr (B, m, ceil(n/16)), aux (B, 4), hsel (B, n+1) or
+    None)``, all int32 (see ``csrc/align.cu``). m, n >= 1."""
+    check_supported(params)
+    check_codes(reads, refs)
+    b, m = reads.shape
+    n = refs.shape[1]
+    if m == 0 or n == 0:
+        raise ValueError("the pointer fill needs m >= 1 and n >= 1")
+    if mrp.shape != (b,) or mrp.dtype != torch.int32 or mrp.device != reads.device:
+        raise ValueError("mrp must be (B,) int32 on the codes' device")
+    if reads.device.type == "cpu":
+        return plain.align_batch(reads, refs, mrp, params, algorithm, tie)
+    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
+    dev = reads.device
+    ptr = torch.empty((b, m, -(-n // PACK)), dtype=torch.int32, device=dev)
+    aux = torch.empty((b, 4), dtype=torch.int32, device=dev)
+    hsel = None if local else torch.empty((b, n + 1), dtype=torch.int32, device=dev)
+    if b == 0:
+        return ptr, aux, hsel
+    reads_t = reads.t().contiguous()
+    refs_t = refs.t().contiguous()
+    mrp = mrp.contiguous()
+    h = torch.empty((n, b), dtype=torch.int32, device=dev)
+    ALIGN_KERNEL.launch(
+        reads_t.data_ptr(), refs_t.data_ptr(), mrp.data_ptr(), h.data_ptr(),
+        ptr.data_ptr(), aux.data_ptr(), None if hsel is None else hsel.data_ptr(),
+        b, m, n, params.score_match, params.score_mismatch,
+        params.score_gap_read, params.score_gap_ref, int(local),
+        int(TieBreak(tie) == TieBreak.DIAG_UP_LEFT),
+        torch.cuda.current_stream(dev).cuda_stream)
+    return ptr, aux, hsel
+
+
+def start_cells(aux: np.ndarray, hsel: np.ndarray | None, mrp: np.ndarray,
+                refs: np.ndarray, tie: TieBreak, local: bool):
+    """Traceback start cell and score per pair from the fill's outputs.
+
+    SW: the aux word is the folded argmax. NW: the end cell is
+    ``(mrp, min(max_ref_pos, aux[0]))`` and its score is read from ``hsel``
+    (0 when mrp < 0, where the end cell is on the boundary row)
+    (pallas_align.py:651-668).
+    """
+    if local:
+        return aux[:, 1].copy(), aux[:, 2].copy(), aux[:, 0].copy()
+    n = refs.shape[1]
+    start_f = np.minimum(last_valid_pos(refs, tie), aux[:, 0]).astype(np.int32)
+    scores = np.where(
+        mrp >= 0, hsel[np.arange(len(mrp)), np.clip(start_f, -1, n - 1) + 1], 0
+    ).astype(np.int32)
+    return mrp, start_f, scores
+
+
+def align_batch(
+    reads: np.ndarray,
+    refs: np.ndarray,
+    params: AlignmentParameters,
+    algorithm: Algorithm,
+    tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+    device: torch.device | str = "cuda",
+    chunk_pairs: int | None = None,
+    read_texts: list[str] | None = None,
+    ref_texts: list[str] | None = None,
+    raw: bool = False,
+    device_walk: bool = False,
+    gapped: bool = True,
+):
+    """Full-batch alignment of (B, m), (B, n) uint8 codes: pointer fill on
+    ``device``, traceback on the host.
+
+    Returns a list of :class:`Alignment`, or with ``raw=True`` an
+    :class:`AlignmentBatch` column store; ``gapped=False`` (raw only) leaves
+    out the gapped strings.
+    """
+    if device_walk:
+        raise NotImplementedError(
+            "the traceback walk on the device is not ported yet (ROADMAP A5); "
+            "use device_walk=False, which walks on the host")
+    check_supported(params)
+    algorithm = Algorithm(algorithm)
+    tie = TieBreak(tie)
+    local = algorithm == Algorithm.SMITH_WATERMAN
+    device = torch.device(device)
+    b, m = reads.shape
+    n = refs.shape[1]
+    if m == 0 or n == 0:
+        # Degenerate empty sequences: empty alignments (boundary-only walk).
+        return [
+            tb.decode_one(np.zeros((1, 1), np.uint8), reads[i], refs[i],
+                          -1, -1, params, algorithm)
+            for i in range(b)
+        ]
+    if chunk_pairs is None:
+        sms = (torch.cuda.get_device_properties(device).multi_processor_count
+               if device.type == "cuda" else 1)
+        chunk_pairs = chunk_pairs_for(m, n, sms)
+
+    def dispatch(lo):
+        r_np = np.ascontiguousarray(reads[lo:lo + chunk_pairs], np.uint8)
+        f_np = np.ascontiguousarray(refs[lo:lo + chunk_pairs], np.uint8)
+        mrp = last_valid_pos(r_np, tie)
+        out = fill(torch.from_numpy(r_np).to(device),
+                   torch.from_numpy(f_np).to(device),
+                   torch.from_numpy(mrp).to(device), params, algorithm, tie)
+        done = None
+        if device.type == "cuda":
+            # Queue the copies back into page-locked memory, so that the
+            # host returns at once and decodes the previous chunk meanwhile.
+            out = tuple(None if x is None else
+                        torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                        .copy_(x, non_blocking=True) for x in out)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        return lo, r_np, f_np, mrp, out, done
+
+    def decode(entry):
+        lo, r_np, f_np, mrp, (ptr, aux, hsel), done = entry
+        if done is not None:
+            done.synchronize()
+        start_r, start_f, scores = start_cells(
+            aux.numpy(), None if hsel is None else hsel.numpy(), mrp, f_np,
+            tie, local)
+        nb = r_np.shape[0]
+        return decode_batch_native(
+            (ptr.numpy(), PACK), r_np, f_np, start_r, start_f, params,
+            algorithm, scores,
+            None if read_texts is None else read_texts[lo:lo + nb],
+            None if ref_texts is None else ref_texts[lo:lo + nb],
+            raw=raw, gapped=gapped)
+
+    results = []
+    pending = None
+    for lo in range(0, b, chunk_pairs):
+        entry = dispatch(lo)
+        if pending is not None:
+            results.append(decode(pending))
+        pending = entry
+    if pending is not None:
+        results.append(decode(pending))
+    if raw:
+        return AlignmentBatch.concat(results)
+    return [a for chunk in results for a in chunk]
