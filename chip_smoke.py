@@ -2,27 +2,38 @@
 
     python3 chip_smoke.py [--seed N]
 
+The path is ``AlignmentEngine.score_alignments`` and ``compute_alignments``
+under four parameter sets (``_param_sets``): the reference's default DNA
+scoring, BWA-MEM's affine DNA gaps, and BLOSUM62 protein scoring with
+BLASTP's affine gaps or with linear gaps.
+
 Phases (any failure exits non-zero before a result is printed):
 
 1. card: name and power limit, torch and CUDA versions; build every kernel
-   of ``versalignlib_tpu_torch/csrc`` (one nvcc per source, in parallel);
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's launch shapes and an odd ref length, with ``==`` (tolerance 0:
-   every output is an integer);
-3. the main path through the entry points a user calls:
-   ``AlignmentEngine().score_alignments`` on 16384 pairs of 512 x 512 and
-   ``compute_alignments`` on 4096 pairs of 512 x 512 (``raw=True``) and on
-   256 of them (``raw=False``), SW and NW, checked field by field on 64
-   random pairs against the port's CPU path; each kernel's launch counter is
-   read around this phase alone;
+   of ``versalignlib_tpu_torch/csrc`` (one nvcc per source, in parallel) and
+   print each instantiation's registers and spills;
+2. every branch of every kernel against its plain PyTorch version on the
+   card, with ``==`` (tolerance 0: every output is an integer): at the main
+   path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
+   x 512), at an odd shape whose ref length leaves a partial pointer word
+   (150 x 509), and under a random 200 x 200 matrix, too large for shared
+   memory, at a small shape;
+3. the main path through the entry points a user calls, once per parameter
+   set: ``AlignmentEngine(params, tie=...)`` scores 16384 pairs of 512 x 512
+   and aligns 4096 of them (``raw=True``) and 256 (``raw=False``), SW and NW,
+   both tie-break flavors, checked field by field on 64 random pairs against
+   the port's CPU path. The launch counts are set to 0 just before each
+   set's run and read just after: the kernels of its path must have
+   launched, and the other fill kernel must not;
 4. times with CUDA events after a warm-up, the median of 7 runs with min and
-   max: each kernel, its plain version, and the split of
-   ``compute_alignments`` into device fill, device-to-host copy and host
-   decode;
+   max, for each branch: the kernel, its plain version, the bound, and the
+   split of ``compute_alignments(raw=True)`` into device fill,
+   device-to-host copy and host decode;
 5. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Inputs are random A/C/G/T with about 2% N and random trailing padding, made
+DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
+standard residues with about 1% X, both with random trailing padding, made
 with numpy from ``--seed``. Nothing of JAX is imported.
 """
 
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,16 +56,56 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-#: int32 operations per DP cell, counted from the recurrence each kernel
-#: computes. Score: substitution (compare, select), three adds, two maxes,
-#: the SW clamp and the running best (SW 8; NW 7: no clamp, best once a
-#: row). Align adds the move priority (two ors), its extraction and packing
-#: (and, shift, or), the cleared value (and) and the strict argmax (compare,
-#: two selects): SW 16, NW 15.
-OPS_PER_CELL = {("score", "sw"): 8, ("score", "nw"): 7,
-                ("align", "sw"): 16, ("align", "nw"): 15}
+#: int32 operations per DP cell, (SW, NW), counted from the recurrence each
+#: branch computes, not from the instructions a kernel happens to issue.
+#: Linear gaps, DNA: score 8 / 7 and fill 16 / 15 (the move priority, its
+#: packing and the cleared value on top of the score's cell), the counts
+#: the first bounds used. Each other branch adds only what its recurrence
+#: adds:
+#: - matrix: substitution is an add and a lookup, as the DNA compare and
+#:   select are two, so a matrix branch counts as its DNA branch;
+#: - affine: F = max(up + open, F_up) + gap and E alike are three
+#:   operations each where a linear gap arm is one add (+4), and in the
+#:   fills each extend bit is a compare, a select and an or (+6).
+OPS_PER_CELL = {
+    ("score", "linear"): (8, 7), ("score", "affine"): (12, 11),
+    ("align", "linear"): (16, 15), ("align", "affine"): (26, 25),
+}
 
 REPS = 7
+PLAIN_REPS = 3
+
+#: The main path's shapes: scores on SCORE_PAIRS pairs of LENGTH x LENGTH,
+#: raw alignments on ALIGN_PAIRS pairs and ``Alignment`` objects on
+#: OBJECT_PAIRS of them, CHECK_PAIRS of each checked against the CPU path;
+#: ODD_SHAPE leaves a partial pointer word; BIG_MATRIX_SHAPE is where the
+#: 200 x 200 matrix runs.
+LENGTH = 512
+SCORE_PAIRS, ALIGN_PAIRS, OBJECT_PAIRS, CHECK_PAIRS = 16384, 4096, 256, 64
+ODD_SHAPE = (1024, 150, 509)
+BIG_MATRIX_SHAPE = (512, 64, 77)
+
+
+def _param_sets() -> dict:
+    from versalignlib_tpu_torch.alphabet import blosum62
+    from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
+
+    return {
+        # The reference program's default scoring (CustomParameters.h:55-58).
+        "dna_default": DEFAULT_PARAMETERS,
+        # BWA-MEM's defaults -A1 -B4 -O6 -E1 (bwa.1 man page); a gap of
+        # length L costs gap_open + L * score_gap.
+        "dna_affine_bwamem": AlignmentParameters(
+            score_match=1, score_mismatch=-4, score_gap_read=-1, score_gap_ref=-1,
+            gap_open_read=-6, gap_open_ref=-6),
+        # BLASTP's defaults: BLOSUM62, gap existence 11, extension 1.
+        "protein_blosum62_affine": AlignmentParameters(
+            score_gap_read=-1, score_gap_ref=-1, gap_open_read=-11,
+            gap_open_ref=-11, matrix=blosum62()),
+        # The JAX package's own protein setting (tests/test_matrix.py:166).
+        "protein_blosum62_linear": AlignmentParameters(
+            score_gap_read=-11, score_gap_ref=-11, matrix=blosum62()),
+    }
 
 
 def log(*args) -> None:
@@ -67,14 +119,31 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _pad_tail(rng, codes: np.ndarray) -> np.ndarray:
+    n, length = codes.shape
+    lens = rng.integers(1, length + 1, size=n)
+    return np.where(np.arange(length)[None, :] < lens[:, None], codes,
+                    np.uint8(0)).astype(np.uint8)
+
+
 def random_codes(rng, n: int, length: int) -> np.ndarray:
     """A/C/G/T codes with ~2% N (5) and random trailing padding (0), as
     tests/conftest.py:random_codes makes them."""
     codes = rng.integers(1, 5, size=(n, length)).astype(np.uint8)
     codes = np.where(rng.random((n, length)) < 0.02, np.uint8(5), codes)
-    lens = rng.integers(1, length + 1, size=n)
-    return np.where(np.arange(length)[None, :] < lens[:, None], codes,
-                    np.uint8(0)).astype(np.uint8)
+    return _pad_tail(rng, codes)
+
+
+def random_protein(rng, n: int, length: int) -> np.ndarray:
+    """The 20 standard residues of ``PROTEIN_ALPHABET`` (codes 1..20) with
+    ~1% X (23) and random trailing padding (0)."""
+    codes = rng.integers(1, 21, size=(n, length)).astype(np.uint8)
+    codes = np.where(rng.random((n, length)) < 0.01, np.uint8(23), codes)
+    return _pad_tail(rng, codes)
+
+
+def codes_for(params, rng, n: int, length: int) -> np.ndarray:
+    return (random_codes if params.matrix is None else random_protein)(rng, n, length)
 
 
 def time_cuda(fn, reps: int = REPS) -> dict:
@@ -108,10 +177,36 @@ def time_host(fn, reps: int = REPS) -> dict:
             "max": max(times), "k": reps}
 
 
-def bound(kind: str, alg: str, b: int, m: int, n: int, nbytes: int) -> tuple[float, str]:
+def register_report(log_text: str) -> list[str]:
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``: its
+    template arguments (kLocal, kCanon or kAffine, kMat), registers and
+    spill bytes."""
+    out, kernel, spill = [], "?", ""
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+            found = re.search(r"([a-z]+_kernel)I(.*)EEvNS", name)
+            kernel = (f"{found.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', found.group(2) + 'E'))}>"
+                      if found else name)
+        elif "spill stores" in line:
+            spill = line.split(",", 1)[-1].strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{kernel}: {regs.group(1) if regs else '?'} registers, {spill}")
+    return out
+
+
+def branch_of(params) -> tuple[str, str]:
+    return ("affine" if params.affine else "linear",
+            "dna" if params.matrix is None else "matrix")
+
+
+def bound(kind: str, params, alg: str, b: int, m: int, n: int,
+          nbytes: int) -> tuple[float, str]:
     """Least time in ms for the work, and which of bytes or operations sets it."""
+    sw, nw = OPS_PER_CELL[kind, branch_of(params)[0]]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = OPS_PER_CELL[(kind, alg)] * b * m * n / INT32_OPS_PER_S
+    t_ops = (sw if alg == "sw" else nw) * b * m * n / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -127,41 +222,89 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
+def _plain_fill(params):
+    """The plain version of the parameters' fill kernel."""
+    from versalignlib_tpu_torch.ops import plain
+
+    return plain.align_affine_batch if params.affine else plain.align_batch
+
+
+def _kernel_name(kind: str, params) -> str:
+    return f"{kind}[{','.join(branch_of(params))}]"
+
+
+def _random_matrix(rng, s: int) -> tuple:
+    """An asymmetric S x S matrix with zero padding row and column and one
+    interior all-zero code (score-invalid, as N is for DNA)."""
+    m = rng.integers(-4, 5, size=(s, s))
+    np.fill_diagonal(m, rng.integers(3, 7, size=s))
+    m[0, :] = m[:, 0] = 0
+    m[4, :] = m[:, 4] = 0
+    return tuple(tuple(int(v) for v in row) for row in m)
+
+
 def phase_kernels_vs_plain(rng, dev) -> dict:
+    """Each branch against its plain version; returns the max abs error per
+    kernel name (0)."""
     from versalignlib_tpu_torch.ops import cuda_align, plain
     from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
-    from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS as P
+    from versalignlib_tpu_torch.params import AlignmentParameters
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
-    err = {"score": 0, "align": 0}
-    # The main path's launch shapes (16384 scores; alignments in one chunk of
-    # 4096 and one of 256, all 512 x 512), and an odd ref length.
-    for b, m, n in ((16384, 512, 512), (4096, 150, 509)):
-        r = torch.from_numpy(random_codes(rng, b, m)).to(dev)
-        f = torch.from_numpy(random_codes(rng, b, n)).to(dev)
-        for alg in Algorithm:
-            got = score_batch_device(r, f, P, alg)
-            want = plain.score_batch(r, f, P, alg)
-            err["score"] = max(err["score"], check_equal(
-                f"score {alg.name} {b}x{m}x{n}", got, want))
-            log(f"[kernels] score.cu == plain  {alg.name:17s} B={b} {m}x{n}")
-    for b, m, n in ((4096, 512, 512), (256, 512, 512), (1024, 150, 509)):
-        r_np = random_codes(rng, b, m)
-        r = torch.from_numpy(r_np).to(dev)
-        f = torch.from_numpy(random_codes(rng, b, n)).to(dev)
-        for tie in TieBreak:
-            mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie)).to(dev)
+    err: dict[str, int] = {}
+
+    def run(name, params, score_shapes, fill_shapes, make):
+        for b, m, n in score_shapes:
+            r = torch.from_numpy(make(rng, b, m)).to(dev)
+            f = torch.from_numpy(make(rng, b, n)).to(dev)
+            key = _kernel_name("score", params)
             for alg in Algorithm:
-                got = cuda_align.fill(r, f, mrp, P, alg, tie)
-                want = plain.align_batch(r, f, mrp, P, alg, tie)
-                for part, g, w in zip(("ptr", "aux", "hsel"), got, want):
-                    if (g is None) != (w is None):
-                        raise AssertionError(f"align {part}: one side is None")
-                    if g is not None:
-                        err["align"] = max(err["align"], check_equal(
-                            f"align {part} {alg.name} {tie.name} {b}x{m}x{n}", g, w))
-                log(f"[kernels] align.cu == plain  {alg.name:17s} {tie.name} "
-                    f"B={b} {m}x{n} (ptr, aux, hsel)")
+                got = score_batch_device(r, f, params, alg)
+                want = plain.score_batch(r, f, params, alg)
+                err[key] = max(err.get(key, 0), check_equal(
+                    f"{key} {name} {alg.name} {b}x{m}x{n}", got, want))
+            log(f"[kernels] score.cu == plain  {name:24s} SW, NW  B={b} {m}x{n}")
+        plain_fill = _plain_fill(params)
+        key = _kernel_name("align", params)
+        for b, m, n in fill_shapes:
+            r_np = make(rng, b, m)
+            r = torch.from_numpy(r_np).to(dev)
+            f = torch.from_numpy(make(rng, b, n)).to(dev)
+            for tie in TieBreak:
+                mrp = torch.from_numpy(
+                    cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+                for alg in Algorithm:
+                    got = cuda_align.fill(r, f, mrp, params, alg, tie)
+                    want = plain_fill(r, f, mrp, params, alg, tie)
+                    for part, g, w in zip(("ptr", "aux", "hsel"), got, want):
+                        if (g is None) != (w is None):
+                            raise AssertionError(f"{key} {part}: one side is None")
+                        if g is not None:
+                            err[key] = max(err.get(key, 0), check_equal(
+                                f"{key} {part} {name} {alg.name} {tie.name} "
+                                f"{b}x{m}x{n}", g, w))
+            src = "align_affine.cu" if params.affine else "align.cu"
+            log(f"[kernels] {src} == plain  {name:24s} SW, NW x both flavors "
+                f"B={b} {m}x{n} (ptr, aux, hsel)")
+
+    L = LENGTH
+    for name, params in _param_sets().items():
+        # The main path's launch shapes (scores; alignments in one chunk of
+        # ALIGN_PAIRS and one of OBJECT_PAIRS), and an odd ref length.
+        run(name, params, ((SCORE_PAIRS, L, L), ODD_SHAPE),
+            ((ALIGN_PAIRS, L, L), (OBJECT_PAIRS, L, L), ODD_SHAPE),
+            lambda g, b, length, p=params: codes_for(p, g, b, length))
+    # A 200 x 200 matrix is 160 KB: the kernels read it from device memory.
+    # Codes run past S, which must score 0 and count as invalid.
+    big = _random_matrix(rng, 200)
+    for name, params in (
+            ("random_s200_linear", AlignmentParameters(
+                score_gap_read=-3, score_gap_ref=-2, matrix=big)),
+            ("random_s200_affine", AlignmentParameters(
+                score_gap_read=-1, score_gap_ref=-2, gap_open_read=-3,
+                gap_open_ref=-4, matrix=big))):
+        run(name, params, (BIG_MATRIX_SHAPE,), (BIG_MATRIX_SHAPE,),
+            lambda g, b, length: _pad_tail(g, g.integers(1, 210, size=(b, length)).astype(np.uint8)))
     torch.cuda.synchronize()
     return err
 
@@ -173,144 +316,178 @@ def _same_alignment(x, y) -> bool:
             y.ref_start, y.ref_end, y.buffer_start, y.buffer_end)
 
 
-def phase_main_path(rng) -> dict:
-    from versalignlib_tpu_torch import Algorithm, AlignmentEngine
-    from versalignlib_tpu_torch.ops.cuda_align import ALIGN_KERNEL
+def _main_path(name, params, rng) -> dict:
+    """One parameter set through the engine, launch counts read around it
+    alone, checked on 64 pairs against the CPU path."""
+    from versalignlib_tpu_torch import Algorithm, AlignmentEngine, TieBreak
+    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
     from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
 
-    engine = AlignmentEngine(backend="auto")
-    cpu = AlignmentEngine(device="cpu")
-    if engine.device.type != "cuda":
-        raise AssertionError(f"default engine resolved to {engine.device}")
-    m = n = 512
-    score_r = random_codes(rng, 16384, m)
-    score_f = random_codes(rng, 16384, n)
-    align_r = random_codes(rng, 4096, m)
-    align_f = random_codes(rng, 4096, n)
-    pick = np.sort(rng.choice(4096, size=64, replace=False))
-    pick_obj = np.sort(rng.choice(256, size=64, replace=False))
+    engines = {tie: AlignmentEngine(params, backend="auto", tie=tie) for tie in TieBreak}
+    for engine in engines.values():
+        if engine.device.type != "cuda":
+            raise AssertionError(f"default engine resolved to {engine.device}")
+    m = n = LENGTH
+    nobj = OBJECT_PAIRS
+    score_r = codes_for(params, rng, SCORE_PAIRS, m)
+    score_f = codes_for(params, rng, SCORE_PAIRS, n)
+    align_r = codes_for(params, rng, ALIGN_PAIRS, m)
+    align_f = codes_for(params, rng, ALIGN_PAIRS, n)
+    pick = np.sort(rng.choice(ALIGN_PAIRS, size=CHECK_PAIRS, replace=False))
+    pick_obj = np.sort(rng.choice(nobj, size=CHECK_PAIRS, replace=False))
 
-    SCORE_KERNEL.launches = 0
-    ALIGN_KERNEL.launches = 0
+    kernels = {"score": SCORE_KERNEL, "align": ALIGN_KERNEL, "align_affine": AFFINE_KERNEL}
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     scores, raws, objs = {}, {}, {}
     for alg in Algorithm:
-        scores[alg] = engine.score_alignments(alg, score_r, score_f)
-        raws[alg] = engine.compute_alignments(alg, align_r, align_f, raw=True)
-        objs[alg] = engine.compute_alignments(alg, align_r[:256], align_f[:256])
+        scores[alg] = engines[TieBreak.DIAG_UP_LEFT].score_alignments(alg, score_r, score_f)
+        for tie, engine in engines.items():
+            raws[alg, tie] = engine.compute_alignments(alg, align_r, align_f, raw=True)
+            objs[alg, tie] = engine.compute_alignments(alg, align_r[:nobj], align_f[:nobj])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"score": SCORE_KERNEL.launches, "align": ALIGN_KERNEL.launches}
-    log(f"[main] launches during the main path: {launches} ({wall:.2f} s)")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"the main path never launched the {name} kernel")
+    launches = {k: v.launches for k, v in kernels.items()}
+    log(f"[main] {name}: launches during its path: {launches} ({wall:.2f} s)")
+    fill, other = ("align_affine", "align") if params.affine else ("align", "align_affine")
+    for kernel in ("score", fill):
+        if launches[kernel] < 1:
+            raise AssertionError(f"{name}: the path never launched the {kernel} kernel")
+    if launches[other]:
+        raise AssertionError(f"{name}: the path launched the {other} kernel")
 
     for alg in Algorithm:
+        cpus = {tie: AlignmentEngine(params, tie=tie, device="cpu") for tie in TieBreak}
         s = scores[alg]
-        if s.shape != (16384,) or s.dtype != np.int32 or (s < 0).any():
-            raise AssertionError(f"scores {alg.name}: bad shape, type or sign")
-        want = cpu.score_alignments(alg, score_r[pick], score_f[pick])
+        if s.shape != (SCORE_PAIRS,) or s.dtype != np.int32 or (s < 0).any():
+            raise AssertionError(f"{name} scores {alg.name}: bad shape, type or sign")
+        want = cpus[TieBreak.DIAG_UP_LEFT].score_alignments(alg, score_r[pick], score_f[pick])
         if not (s[pick] == want).all():
-            raise AssertionError(f"scores {alg.name} differ from the CPU path")
-        batch = raws[alg]
-        want_raw = cpu.compute_alignments(alg, align_r[pick], align_f[pick], raw=True)
-        for col in ("meta", "cigar", "read_gapped", "ref_gapped"):
-            if not np.array_equal(getattr(batch, col)[pick], getattr(want_raw, col)):
-                raise AssertionError(f"raw {col} {alg.name} differs from the CPU path")
-        want_obj = cpu.compute_alignments(alg, align_r[:256][pick_obj], align_f[:256][pick_obj])
-        got_obj = [objs[alg][k] for k in pick_obj]
-        if len(objs[alg]) != 256 or not all(map(_same_alignment, got_obj, want_obj)):
-            raise AssertionError(f"alignments {alg.name} differ from the CPU path")
-        if not (batch.scores[:256] == np.array([a.score for a in objs[alg]])).all():
-            raise AssertionError(f"raw and object scores {alg.name} disagree")
-        log(f"[main] {alg.name}: scores B=16384, raw B=4096, objects B=256 "
-            f"== CPU path on 64 pairs each")
+            raise AssertionError(f"{name} scores {alg.name} differ from the CPU path")
+        for tie, cpu in cpus.items():
+            batch = raws[alg, tie]
+            want_raw = cpu.compute_alignments(alg, align_r[pick], align_f[pick], raw=True)
+            for col in ("meta", "cigar", "read_gapped", "ref_gapped"):
+                if not np.array_equal(getattr(batch, col)[pick], getattr(want_raw, col)):
+                    raise AssertionError(
+                        f"{name} raw {col} {alg.name} {tie.name} differs from the CPU path")
+            want_obj = cpu.compute_alignments(
+                alg, align_r[:nobj][pick_obj], align_f[:nobj][pick_obj])
+            got_obj = [objs[alg, tie][k] for k in pick_obj]
+            if len(objs[alg, tie]) != nobj or not all(map(_same_alignment, got_obj, want_obj)):
+                raise AssertionError(
+                    f"{name} alignments {alg.name} {tie.name} differ from the CPU path")
+            if not (batch.scores[:nobj] == np.array([a.score for a in objs[alg, tie]])).all():
+                raise AssertionError(f"{name} raw and object scores {alg.name} disagree")
+        log(f"[main] {name} {alg.name}: scores B={SCORE_PAIRS}, raw B={ALIGN_PAIRS}, "
+            f"objects B={nobj}, both flavors == CPU path on {CHECK_PAIRS} pairs each")
     return {"launches": launches, "wall_s": wall}
 
 
-def phase_times(rng, dev, launches: dict, errs: dict) -> list[dict]:
+def phase_main_path(rng) -> dict:
+    return {name: _main_path(name, params, rng) for name, params in _param_sets().items()}
+
+
+def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
     from versalignlib_tpu_torch import AlignmentEngine
     from versalignlib_tpu_torch.native import decode_batch_native
     from versalignlib_tpu_torch.ops import cuda_align, plain
     from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
-    from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS as P
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
-    m = n = 512
+    m = n = LENGTH
+    algs = ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw"))
     entries = []
+    for name, params in _param_sets().items():
+        b = SCORE_PAIRS
+        r = torch.from_numpy(codes_for(params, rng, b, m)).to(dev)
+        f = torch.from_numpy(codes_for(params, rng, b, n)).to(dev)
+        table_bytes = 0 if params.matrix is None else 4 * params.sub_size ** 2
+        t = {}
+        for alg, key in algs:
+            k = time_cuda(lambda: score_batch_device(r, f, params, alg))
+            pl = time_cuda(lambda: plain.score_batch(r, f, params, alg), reps=PLAIN_REPS)
+            bd, by = bound("score", params, key, b, m, n, b * (m + n) + 4 * b + table_bytes)
+            t[key] = (k, pl, bd, by)
+            log(f"[times] score.cu {name} {key} B={b} {m}x{n}: {k['median']:.3f} ms "
+                f"(min {k['min']:.3f}, max {k['max']:.3f}), "
+                f"{b * m * n / k['median'] / 1e6:.1f} GCUPS; plain {pl['median']:.1f} ms; "
+                f"bound {bd:.3f} ms ({by})")
+        key = _kernel_name("score", params)
+        entries.append(_entry(key, name, "versalignlib_tpu_torch/csrc/score.cu",
+                              "versalignlib_tpu/ops/pallas_score.py:219",
+                              main[name]["launches"]["score"], errs[key], (b, m, n), t))
 
-    b = 16384
-    r = torch.from_numpy(random_codes(rng, b, m)).to(dev)
-    f = torch.from_numpy(random_codes(rng, b, n)).to(dev)
-    t = {}
-    for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
-        k = time_cuda(lambda: score_batch_device(r, f, P, alg))
-        pl = time_cuda(lambda: plain.score_batch(r, f, P, alg), reps=5)
-        bd, by = bound("score", key, b, m, n, b * (m + n) + 4 * b)
-        t[key] = (k, pl, bd, by)
-        log(f"[times] score.cu {key} B={b} {m}x{n}: {k['median']:.3f} ms "
-            f"(min {k['min']:.3f}, max {k['max']:.3f}), "
-            f"{b * m * n / k['median'] / 1e6:.1f} GCUPS; plain {pl['median']:.1f} ms; "
-            f"bound {bd:.3f} ms ({by})")
-    entries.append(_entry("score", "versalignlib_tpu_torch/csrc/score.cu",
-                          "versalignlib_tpu/ops/pallas_score.py:219",
-                          launches["score"], errs["score"], (b, m, n), t))
+        b = ALIGN_PAIRS
+        r_np = codes_for(params, rng, b, m)
+        f_np = codes_for(params, rng, b, n)
+        r = torch.from_numpy(r_np).to(dev)
+        f = torch.from_numpy(f_np).to(dev)
+        tie = TieBreak.DIAG_UP_LEFT
+        mrp_np = cuda_align.last_valid_pos(r_np, tie, params.matrix)
+        mrp = torch.from_numpy(mrp_np).to(dev)
+        kernel, plain_fill = cuda_align.fill, _plain_fill(params)
+        pack = cuda_align.AFFINE_PACK if params.affine else cuda_align.PACK
+        nc = -(-n // pack)
+        engine = AlignmentEngine(params)
+        mrp_sse = torch.from_numpy(cuda_align.last_valid_pos(
+            r_np, TieBreak.DIAG_LEFT_UP, params.matrix)).to(dev)
+        t = {}
+        split = {}
+        sse = {}
+        for alg, key in algs:
+            sse[key] = time_cuda(
+                lambda: kernel(r, f, mrp_sse, params, alg, TieBreak.DIAG_LEFT_UP))["median"]
+            k = time_cuda(lambda: kernel(r, f, mrp, params, alg, tie))
+            pl = time_cuda(lambda: plain_fill(r, f, mrp, params, alg, tie), reps=PLAIN_REPS)
+            nbytes = (b * (m + n) + 4 * b + table_bytes + 4 * b * m * nc + 16 * b
+                      + (0 if key == "sw" else 4 * b * (n + 1)))
+            bd, by = bound("align", params, key, b, m, n, nbytes)
+            t[key] = (k, pl, bd, by)
+            src = "align_affine.cu" if params.affine else "align.cu"
+            log(f"[times] {src} {name} {key} B={b} {m}x{n}: {k['median']:.3f} ms "
+                f"(min {k['min']:.3f}, max {k['max']:.3f}), "
+                f"{b * m * n / k['median'] / 1e6:.1f} GCUPS; plain {pl['median']:.1f} ms; "
+                f"bound {bd:.3f} ms ({by}); SSE flavor {sse[key]:.3f} ms")
 
-    b = 4096
-    r_np = random_codes(rng, b, m)
-    f_np = random_codes(rng, b, n)
-    r = torch.from_numpy(r_np).to(dev)
-    f = torch.from_numpy(f_np).to(dev)
-    tie = TieBreak.DIAG_UP_LEFT
-    mrp_np = cuda_align.last_valid_pos(r_np, tie)
-    mrp = torch.from_numpy(mrp_np).to(dev)
-    nc = -(-n // cuda_align.PACK)
-    engine = AlignmentEngine()
-    t = {}
-    split = {}
-    for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
-        k = time_cuda(lambda: cuda_align.fill(r, f, mrp, P, alg, tie))
-        pl = time_cuda(lambda: plain.align_batch(r, f, mrp, P, alg, tie), reps=5)
-        nbytes = b * (m + n) + 4 * b + 4 * b * m * nc + 16 * b + (0 if key == "sw" else 4 * b * (n + 1))
-        bd, by = bound("align", key, b, m, n, nbytes)
-        t[key] = (k, pl, bd, by)
-        log(f"[times] align.cu {key} B={b} {m}x{n}: {k['median']:.3f} ms "
-            f"(min {k['min']:.3f}, max {k['max']:.3f}), "
-            f"{b * m * n / k['median'] / 1e6:.1f} GCUPS; plain {pl['median']:.1f} ms; "
-            f"bound {bd:.3f} ms ({by})")
+            out = kernel(r, f, mrp, params, alg, tie)
+            host = [None if x is None else torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for x in out]
 
-        out = cuda_align.fill(r, f, mrp, P, alg, tie)
-        host = [None if x is None else torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                for x in out]
+            def copy():
+                for h, x in zip(host, out):
+                    if x is not None:
+                        h.copy_(x, non_blocking=True)
 
-        def copy():
-            for h, x in zip(host, out):
-                if x is not None:
-                    h.copy_(x, non_blocking=True)
-
-        d2h = time_cuda(copy)
-        start_r, start_f, sc = cuda_align.start_cells(
-            host[1].numpy(), None if host[2] is None else host[2].numpy(),
-            mrp_np, f_np, tie, key == "sw")
-        decode = time_host(lambda: decode_batch_native(
-            (host[0].numpy(), cuda_align.PACK), r_np, f_np, start_r, start_f,
-            P, alg, sc, raw=True))
-        e2e = time_host(lambda: engine.compute_alignments(alg, r_np, f_np, raw=True))
-        split[key] = {"fill_ms": k["median"], "d2h_ms": d2h["median"],
-                      "d2h_GBps": 4 * b * m * nc / d2h["median"] / 1e6,
-                      "decode_ms": decode["median"], "e2e_ms": e2e["median"],
-                      "e2e_min_ms": e2e["min"], "e2e_max_ms": e2e["max"]}
-        log(f"[times] compute_alignments(raw=True) {key} B={b} {m}x{n}: "
-            + json.dumps({kk: round(v, 3) for kk, v in split[key].items()}))
-    entries.append(_entry("align", "versalignlib_tpu_torch/csrc/align.cu",
-                          "versalignlib_tpu/ops/pallas_align.py:90",
-                          launches["align"], errs["align"], (b, m, n), t))
-    entries[-1]["compute_alignments_split"] = split
+            d2h = time_cuda(copy)
+            start_r, start_f, sc = cuda_align.start_cells(
+                host[1].numpy(), None if host[2] is None else host[2].numpy(),
+                mrp_np, f_np, tie, key == "sw", params.matrix)
+            decode = time_host(lambda: decode_batch_native(
+                (host[0].numpy(), pack), r_np, f_np, start_r, start_f,
+                params, alg, sc, affine=params.affine, raw=True))
+            e2e = time_host(lambda: engine.compute_alignments(alg, r_np, f_np, raw=True))
+            split[key] = {"fill_ms": k["median"], "d2h_ms": d2h["median"],
+                          "d2h_GBps": 4 * b * m * nc / d2h["median"] / 1e6,
+                          "decode_ms": decode["median"], "e2e_ms": e2e["median"],
+                          "e2e_min_ms": e2e["min"], "e2e_max_ms": e2e["max"]}
+            log(f"[times] compute_alignments(raw=True) {name} {key} B={b} {m}x{n}: "
+                + json.dumps({kk: round(v, 3) for kk, v in split[key].items()}))
+        key = _kernel_name("align", params)
+        fill_kernel = "align_affine" if params.affine else "align"
+        source, replaces = (
+            ("versalignlib_tpu_torch/csrc/align_affine.cu",
+             "versalignlib_tpu/ops/pallas_align.py:724") if params.affine else
+            ("versalignlib_tpu_torch/csrc/align.cu", "versalignlib_tpu/ops/pallas_align.py:90"))
+        entries.append(_entry(key, name, source, replaces,
+                              main[name]["launches"][fill_kernel], errs[key], (b, m, n), t))
+        entries[-1]["compute_alignments_split"] = split
+        entries[-1]["sse_flavor_ms"] = sse
     return entries
 
 
-def _entry(name, source, replaces, launches, err, shape, t) -> dict:
+def _entry(name, params_name, source, replaces, launches, err, shape, t) -> dict:
     b, m, n = shape
     (k, pl, bd, by), (k_nw, pl_nw, bd_nw, _) = t["sw"], t["nw"]
     return {
@@ -318,8 +495,9 @@ def _entry(name, source, replaces, launches, err, shape, t) -> dict:
         "launches": launches, "max_abs_err": err, "tolerance": 0,
         "ms": k["median"], "plain_ms": pl["median"], "bound_ms": bd,
         "bound_by": by, "library_ms": None,
-        "shape": [b, m, n], "algorithm": "SW", "ms_min": k["min"],
-        "ms_max": k["max"], "gcups": b * m * n / k["median"] / 1e6,
+        "params": params_name, "shape": [b, m, n], "algorithm": "SW",
+        "ms_min": k["min"], "ms_max": k["max"],
+        "gcups": b * m * n / k["median"] / 1e6,
         "nw": {"ms": k_nw["median"], "ms_min": k_nw["min"], "ms_max": k_nw["max"],
                "plain_ms": pl_nw["median"], "bound_ms": bd_nw,
                "gcups": b * m * n / k_nw["median"] / 1e6},
@@ -337,24 +515,29 @@ def main() -> int:
         return 2
     from versalignlib_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"[card] {smi}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
-    t0 = time.perf_counter()
     seconds = _build.build_all()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
-        f"total {time.perf_counter() - t0:.2f} s")
+        f"total {time.perf_counter() - t_start:.2f} s")
     for src in seconds:
-        report = _build.library_path(src).with_suffix(".log").read_text()
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+        for line in register_report(_build.library_path(src).with_suffix(".log").read_text()):
+            log(f"[build] {src} {line}")
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     errs = phase_kernels_vs_plain(rng, dev)
+    log(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     main_path = phase_main_path(rng)
-    kernels = phase_times(rng, dev, main_path["launches"], errs)
+    log(f"[phase] main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels = phase_times(rng, dev, main_path, errs)
+    log(f"[phase] times: {time.perf_counter() - t0:.1f} s; whole script "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points run on the card or raise, and what it has not ported raises instead
-of computing something else."""
+of computing something else, while what it has ported computes."""
 
 import ast
 import pathlib
@@ -82,20 +82,24 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert '"ok"' not in out.stdout and "kernels" not in out.stdout
 
 
+_AFFINE = AlignmentParameters(gap_open_read=-4, gap_open_ref=-4)
+_MATRIX = AlignmentParameters(matrix=((0, 0, 0), (0, 1, -1), (0, -1, 1)))
+
+
 def test_cuda_tensors_launch_or_raise_never_the_plain_version(monkeypatch):
     calls = []
-    monkeypatch.setattr(plain, "score_batch", lambda *a: calls.append(a))
-    monkeypatch.setattr(plain, "align_batch", lambda *a: calls.append(a))
+    for name in ("score_batch", "align_batch", "align_affine_batch"):
+        monkeypatch.setattr(plain, name, lambda *a: calls.append(a))
     reads = np.ones((2, 5), np.uint8)
     refs = np.ones((2, 6), np.uint8)
     cuda = torch.device("cuda")
     if not torch.cuda.is_available():
-        with pytest.raises((RuntimeError, AssertionError)):
-            cuda_score.CudaScorer(cuda)(reads, refs, DEFAULT_PARAMETERS,
-                                        Algorithm.SMITH_WATERMAN)
-        with pytest.raises((RuntimeError, AssertionError)):
-            cuda_align.align_batch(reads, refs, DEFAULT_PARAMETERS,
-                                   Algorithm.SMITH_WATERMAN, device=cuda)
+        for p in (DEFAULT_PARAMETERS, _AFFINE, _MATRIX):
+            with pytest.raises((RuntimeError, AssertionError)):
+                cuda_score.CudaScorer(cuda)(reads, refs, p, Algorithm.SMITH_WATERMAN)
+            with pytest.raises((RuntimeError, AssertionError)):
+                cuda_align.align_batch(reads, refs, p, Algorithm.SMITH_WATERMAN,
+                                       device=cuda)
     assert calls == []
 
 
@@ -110,21 +114,37 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_modes_raise():
+    """The device walk (ROADMAP A5) still raises; affine and matrix
+    parameters, ported since, compute what the JAX oracles compute."""
+    import dataclasses
+
+    from versalignlib_tpu.ops import gotoh, oracle
+    from versalignlib_tpu.params import AlignmentParameters as JaxParams
+    from versalignlib_tpu.types import Algorithm as JaxAlgorithm
+    from versalignlib_tpu.types import TieBreak as JaxTieBreak
+
     reads = np.ones((2, 5), np.uint8)
     refs = np.ones((2, 6), np.uint8)
     with pytest.raises(NotImplementedError, match="A5"):
         AlignmentEngine(device="cpu", device_walk=True).compute_alignments(
             Algorithm.SMITH_WATERMAN, reads, refs)
-    affine = AlignmentParameters(gap_open_read=-4, gap_open_ref=-4)
-    matrix = AlignmentParameters(matrix=((0, 0, 0), (0, 1, -1), (0, -1, 1)))
-    for p in (affine, matrix):
-        engine = AlignmentEngine(p, device="cpu")
-        with pytest.raises(NotImplementedError, match="A6"):
-            engine.score_alignments(Algorithm.SMITH_WATERMAN, reads, refs)
-        for tie in TieBreak:
-            with pytest.raises(NotImplementedError, match="A6"):
-                AlignmentEngine(p, tie=tie, device="cpu").compute_alignments(
-                    Algorithm.NEEDLEMAN_WUNSCH, reads, refs, raw=True)
+    reads = np.array([[1, 2, 1, 2, 0], [2, 2, 1, 1, 1]], np.uint8)
+    refs = np.array([[2, 1, 2, 1, 1, 0], [1, 1, 2, 2, 1, 2]], np.uint8)
+    for p, score, align in ((_AFFINE, gotoh.score_alignments_affine,
+                             gotoh.compute_alignments_affine),
+                            (_MATRIX, oracle.score_alignments,
+                             oracle.compute_alignments)):
+        jp = JaxParams(**dataclasses.asdict(p))
+        for alg in Algorithm:
+            jalg = JaxAlgorithm(int(alg))
+            np.testing.assert_array_equal(
+                AlignmentEngine(p, device="cpu").score_alignments(alg, reads, refs),
+                score(jalg, reads, refs, jp))
+            for tie in TieBreak:
+                got = AlignmentEngine(p, tie=tie, device="cpu").compute_alignments(
+                    alg, reads, refs, raw=True)
+                want = align(jalg, reads, refs, jp, JaxTieBreak(int(tie)))
+                np.testing.assert_array_equal(got.scores, [a.score for a in want])
 
 
 def test_registry():

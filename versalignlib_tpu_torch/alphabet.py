@@ -1,7 +1,7 @@
 """Sequence encoding: ASCII bases -> small integer codes.
 
 The port's copy of what the alignment path needs from
-``versalignlib_tpu/alphabet.py``. It replicates the reference's 256-entry
+``versalignlib_tpu/alphabet.py``, protein encoding and BLOSUM62 included. It replicates the reference's 256-entry
 ``char_to_score`` table (DefaultKernel.h:43-60): case-insensitive A->1, T->2,
 C->3, G->4, N->5, everything else (including the ``'\\0'`` batch padding)
 -> 0. Codes 0 and 5 score zero against everything (DefaultKernel.h:83-96),
@@ -89,3 +89,83 @@ def make_validity(matrix=None):
         return v
 
     return f
+
+
+# ---------------------------------------------------------------------------
+# Generic alphabets (ADDITIVE: the reference only knows the DNA table)
+# ---------------------------------------------------------------------------
+
+def encode_custom(
+    seqs: Sequence[str | bytes], alphabet: str, length: int | None = None,
+    case_sensitive: bool = False,
+) -> np.ndarray:
+    """Encode a batch against a custom alphabet: ``alphabet[i]`` -> code i+1
+    (code 0 stays the padding/unknown sentinel). Pads with 0 to the batch max
+    (or ``length``), mirroring :func:`pad_and_encode`.
+    """
+    table = np.zeros(256, dtype=np.uint8)
+    for i, ch in enumerate(alphabet):
+        code = i + 1
+        table[ord(ch)] = code
+        if not case_sensitive:
+            table[ord(ch.lower())] = code
+            table[ord(ch.upper())] = code
+    encoded = []
+    for s in seqs:
+        if isinstance(s, str):
+            s = s.encode("ascii", errors="replace")
+        encoded.append(table[np.frombuffer(s, dtype=np.uint8)])
+    maxlen = max((e.size for e in encoded), default=0)
+    if length is None:
+        length = maxlen
+    elif length < maxlen:
+        raise ValueError(f"length={length} < longest sequence ({maxlen})")
+    out = np.zeros((len(encoded), length), dtype=np.uint8)
+    for i, e in enumerate(encoded):
+        out[i, : e.size] = e
+    return out
+
+
+#: Standard protein alphabet order used by :func:`blosum62` (codes 1..24).
+PROTEIN_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZX*"
+
+#: BLOSUM62 substitution scores (Henikoff & Henikoff 1992), row/col order =
+#: PROTEIN_ALPHABET. Public-domain matrix as distributed with NCBI BLAST.
+_BLOSUM62 = [
+    # A  R  N  D  C  Q  E  G  H  I  L  K  M  F  P  S  T  W  Y  V  B  Z  X  *
+    [4, -1, -2, -2, 0, -1, -1, 0, -2, -1, -1, -1, -1, -2, -1, 1, 0, -3, -2, 0, -2, -1, 0, -4],
+    [-1, 5, 0, -2, -3, 1, 0, -2, 0, -3, -2, 2, -1, -3, -2, -1, -1, -3, -2, -3, -1, 0, -1, -4],
+    [-2, 0, 6, 1, -3, 0, 0, 0, 1, -3, -3, 0, -2, -3, -2, 1, 0, -4, -2, -3, 3, 0, -1, -4],
+    [-2, -2, 1, 6, -3, 0, 2, -1, -1, -3, -4, -1, -3, -3, -1, 0, -1, -4, -3, -3, 4, 1, -1, -4],
+    [0, -3, -3, -3, 9, -3, -4, -3, -3, -1, -1, -3, -1, -2, -3, -1, -1, -2, -2, -1, -3, -3, -2, -4],
+    [-1, 1, 0, 0, -3, 5, 2, -2, 0, -3, -2, 1, 0, -3, -1, 0, -1, -2, -1, -2, 0, 3, -1, -4],
+    [-1, 0, 0, 2, -4, 2, 5, -2, 0, -3, -3, 1, -2, -3, -1, 0, -1, -3, -2, -2, 1, 4, -1, -4],
+    [0, -2, 0, -1, -3, -2, -2, 6, -2, -4, -4, -2, -3, -3, -2, 0, -2, -2, -3, -3, -1, -2, -1, -4],
+    [-2, 0, 1, -1, -3, 0, 0, -2, 8, -3, -3, -1, -2, -1, -2, -1, -2, -2, 2, -3, 0, 0, -1, -4],
+    [-1, -3, -3, -3, -1, -3, -3, -4, -3, 4, 2, -3, 1, 0, -3, -2, -1, -3, -1, 3, -3, -3, -1, -4],
+    [-1, -2, -3, -4, -1, -2, -3, -4, -3, 2, 4, -2, 2, 0, -3, -2, -1, -2, -1, 1, -4, -3, -1, -4],
+    [-1, 2, 0, -1, -3, 1, 1, -2, -1, -3, -2, 5, -1, -3, -1, 0, -1, -3, -2, -2, 0, 1, -1, -4],
+    [-1, -1, -2, -3, -1, 0, -2, -3, -2, 1, 2, -1, 5, 0, -2, -1, -1, -1, -1, 1, -3, -1, -1, -4],
+    [-2, -3, -3, -3, -2, -3, -3, -3, -1, 0, 0, -3, 0, 6, -4, -2, -2, 1, 3, -1, -3, -3, -1, -4],
+    [-1, -2, -2, -1, -3, -1, -1, -2, -2, -3, -3, -1, -2, -4, 7, -1, -1, -4, -3, -2, -2, -1, -2, -4],
+    [1, -1, 1, 0, -1, 0, 0, 0, -1, -2, -2, 0, -1, -2, -1, 4, 1, -3, -2, -2, 0, 0, 0, -4],
+    [0, -1, 0, -1, -1, -1, -1, -2, -2, -1, -1, -1, -1, -2, -1, 1, 5, -2, -2, 0, -1, -1, 0, -4],
+    [-3, -3, -4, -4, -2, -2, -3, -2, -2, -3, -2, -3, -1, 1, -4, -3, -2, 11, 2, -3, -4, -3, -2, -4],
+    [-2, -2, -2, -3, -2, -1, -2, -3, 2, -1, -1, -2, -1, 3, -3, -2, -2, 2, 7, -1, -3, -2, -1, -4],
+    [0, -3, -3, -3, -1, -2, -2, -3, -3, 3, 1, -2, 1, -1, -2, -2, 0, -3, -1, 4, -3, -2, -1, -4],
+    [-2, -1, 3, 4, -3, 0, 1, -1, 0, -3, -4, 0, -3, -3, -2, 0, -1, -4, -3, -3, 4, 1, -1, -4],
+    [-1, 0, 0, 1, -3, 3, 4, -2, 0, -3, -3, 1, -1, -3, -1, 0, -1, -3, -2, -2, 1, 4, -1, -4],
+    [0, -1, -1, -1, -2, -1, -1, -1, -1, -1, -1, -1, -1, -1, -2, 0, 0, -2, -1, -1, -1, -1, -1, -4],
+    [-4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, 1],
+]
+
+
+def blosum62() -> tuple:
+    """BLOSUM62 as an ``AlignmentParameters.matrix`` value: 25x25 with the
+    padding row/column 0 prepended (codes = :data:`PROTEIN_ALPHABET` order,
+    1-based via :func:`encode_custom`)."""
+    s = len(_BLOSUM62) + 1
+    out = [[0] * s]
+    for row in _BLOSUM62:
+        out.append([0] + list(row))
+    return tuple(tuple(r) for r in out)

@@ -1,9 +1,10 @@
 // Linear-gap pointer fill: Smith-Waterman and the reference's semi-global
-// "Needleman-Wunsch", default DNA scoring, both tie-break flavors, int32
-// cells.
+// "Needleman-Wunsch", default DNA scoring or an S x S substitution matrix,
+// both tie-break flavors, int32 cells.
 //
-// Replaces versalignlib_tpu/ops/pallas_align.py::_align_kernel and writes
-// what that kernel writes, in the layout the host decoder reads:
+// Replaces versalignlib_tpu/ops/pallas_align.py::_align_kernel, all
+// branches, and writes what that kernel writes, in the layout the host
+// decoder reads:
 // - ptr (b, m, ceil(n/16)) int32, pair-major: one 2-bit move code per inner
 //   cell (0 START, 1 UP, 2 LEFT, 3 DIAG), 16 per word, code j in bits
 //   2*(j % 16); the unfilled fields of a partial last word read START;
@@ -25,13 +26,22 @@
 //   Priorities become stored codes once per word by a 2-bit shuffle
 //   (START 3->0, DIAG 2->3, UP 1->1, LEFT 0->2).
 // - SSE flavor (DIAG > LEFT > UP): the priorities are the codes. DIAG counts
-//   only when both symbols are A/C/G/T: an invalid DIAG gets priority 0, so
-//   if it is strictly best the cell is START, and if it only ties it loses
-//   to LEFT or UP. SW clamps with 0 and has no zero-force.
+//   only when both symbols are valid (A/C/G/T, or under a matrix a code
+//   whose row or column has a nonzero entry, alphabet.valid_code_mask): an
+//   invalid DIAG gets priority 0, so if it is strictly best the cell is
+//   START, and if it only ties it loses to LEFT or UP. SW clamps with 0 and
+//   has no zero-force.
+// A matrix (pre-shifted << 2 by the wrapper) and its per-code validity bytes
+// sit in shared memory, as in score.cu: a cell pays one add and one shared
+// load for its substitution, and the SSE gate one byte lookup per row and
+// per column. Codes >= S read as code 0 (score 0, invalid). A table too
+// large for 48 KB of static shared memory is read from device memory
+// through the read-only cache (kMat 2).
 //
-// What bounds it on an H100: integer operations (about sixteen per cell)
-// well ahead of bytes (the pointer words, 2 bits per cell, are the only
-// output of size). The design is the score kernel's: one thread per pair,
+// What bounds it on an H100: integer operations (16 per SW cell in the
+// recurrence, chip_smoke.OPS_PER_CELL) well ahead of bytes (the pointer
+// words, 2 bits per cell, are the only output of size). The design is the
+// score kernel's, with the scaffolding of common.cuh: one thread per pair,
 // pair-interleaved (len, b) uint8 codes, kRows read rows advancing together
 // with their state in registers, the rolling H row in an (n, b) int32
 // scratch touched once per kRows cells, the next column's loads issued
@@ -43,10 +53,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kRows = 16;  // read rows per sweep (register wavefront)
-constexpr int kThreads = 32;  // one warp per block
+using val::lookup;
 constexpr int kPack = 16;  // 2-bit codes per int32 word
 
 struct AlignArgs {
@@ -57,13 +68,15 @@ struct AlignArgs {
   int32_t *ptr;          // (b, m, nc)
   int32_t *aux;          // (b, 4)
   int32_t *hsel;         // (b, n + 1), NW only
-  int b, m, n, nc;
+  const int32_t *table;  // (s, s) matrix << 2 (matrix modes only)
+  const uint8_t *valid;  // (s,) SSE validity per code (matrix modes only)
+  int b, m, n, nc, s;
   int match4, mismatch4, gap_read4, gap_ref4;  // scores << 2
   int gap_ref;
 };
 
 // Per-row state of one sweep; arrays indexed by unrolled loops stay in
-// registers.
+// registers. Under a matrix, rc is the row's base (code * S) in the table.
 template <int R>
 struct Rows {
   int rc[R], rmask[R], rv3[R];
@@ -73,17 +86,25 @@ struct Rows {
 
 // Column j (ref code f, H value above the sweep up) for all R rows; u is the
 // field of j in its word. Returns the H value of the sweep's last row.
-template <int R, bool kLocal, bool kCanon>
-__device__ __forceinline__ int column(const AlignArgs &a, Rows<R> &s, int j,
+template <int R, bool kLocal, bool kCanon, int kMat>
+__device__ __forceinline__ int column(const AlignArgs &a, const int32_t *tab,
+                                      const uint8_t *vtab, Rows<R> &s, int j,
                                       int u, int cap_row, int32_t *hsel_row,
                                       int f, int up) {
-  const bool fvalid = f >= 1 && f <= 4;
-  const int fc = fvalid ? f : -1;
-  const int fbase = fvalid ? a.mismatch4 : 0;
-  const int fvm = fvalid ? -1 : 0;
+  int fc, fbase = 0, fvm;
+  if (kMat) {
+    fc = f < a.s ? f : 0;
+    fvm = (kCanon || lookup<kMat>(vtab, fc)) ? -1 : 0;
+  } else {
+    const bool fvalid = f >= 1 && f <= 4;
+    fc = fvalid ? f : -1;
+    fbase = fvalid ? a.mismatch4 : 0;
+    fvm = fvalid ? -1 : 0;
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int sub = (s.rc[r] == fc ? a.match4 : fbase) & s.rmask[r];
+    const int sub = kMat ? lookup<kMat>(tab, s.rc[r] + fc)
+                         : (s.rc[r] == fc ? a.match4 : fbase) & s.rmask[r];
     int cur_p;
     if (kCanon) {
       const int diag_p = (s.diag[r] + sub) | 2;
@@ -112,37 +133,26 @@ __device__ __forceinline__ int column(const AlignArgs &a, Rows<R> &s, int j,
   return up;
 }
 
-template <int R, bool kCanon>
-__device__ __forceinline__ void store_words(const AlignArgs &a, Rows<R> &s,
-                                            int32_t *prow, int w, int fill) {
-  const uint32_t even = 0x55555555u;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    uint32_t v = s.word[r];
-    if (kCanon) {
-      v = ((~v & even) << 1) | (((v >> 1) ^ v) & even);
-      // Unfilled fields would read LEFT after the shuffle; they must be START.
-      if (fill < kPack) v &= (1u << (2 * fill)) - 1u;
-    }
-    prow[(size_t)r * a.nc + w] = static_cast<int32_t>(v);
-    s.word[r] = 0;
-  }
-}
-
 // Sweep R read rows [i0, i0 + R) across all n columns for pair p, then fold
 // the rows' maxima into the pair's running result in row order.
-template <int R, bool kLocal, bool kCanon>
-__device__ __forceinline__ void sweep(const AlignArgs &a, int p, int i0,
-                                      int mrp, int &gbest, int &gi, int &gj,
-                                      int &garg) {
+template <int R, bool kLocal, bool kCanon, int kMat>
+__device__ __forceinline__ void sweep(const AlignArgs &a, const int32_t *tab,
+                                      const uint8_t *vtab, int p, int i0,
+                                      int mrp, val::FillResult &res) {
   Rows<R> s;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int c = a.reads[(size_t)(i0 + r) * a.b + p];
-    const bool valid = c >= 1 && c <= 4;
-    s.rc[r] = valid ? c : -2;
-    s.rmask[r] = valid ? -1 : 0;
-    s.rv3[r] = valid ? 3 : 0;
+    if (kMat) {
+      const int cm = c < a.s ? c : 0;
+      s.rc[r] = cm * a.s;
+      s.rv3[r] = (kCanon || lookup<kMat>(vtab, cm)) ? 3 : 0;
+    } else {
+      const bool valid = c >= 1 && c <= 4;
+      s.rc[r] = valid ? c : -2;
+      s.rmask[r] = valid ? -1 : 0;
+      s.rv3[r] = valid ? 3 : 0;
+    }
     // Column 0: 0 for SW; (i+1)*gap_ref for NW (DefaultKernel.cpp:305).
     s.left[r] = kLocal ? 0 : (i0 + r + 1) * a.gap_ref4;
     s.diag[r] = kLocal ? 0 : (i0 + r) * a.gap_ref4;
@@ -168,37 +178,27 @@ __device__ __forceinline__ void sweep(const AlignArgs &a, int p, int i0,
       if (i0 != 0) up_next = hcol[(size_t)(j + 1) * a.b];
     }
     hcol[(size_t)j * a.b] =
-        column<R, kLocal, kCanon>(a, s, j, u, cap_row, hsel_row, f, up);
+        column<R, kLocal, kCanon, kMat>(a, tab, vtab, s, j, u, cap_row,
+                                        hsel_row, f, up);
   };
-  const int full = a.n / kPack;
-  for (int w = 0; w < full; ++w) {
-#pragma unroll
-    for (int u = 0; u < kPack; ++u) step(w * kPack + u, u);
-    store_words<R, kCanon>(a, s, prow, w, kPack);
-  }
-  const int fill = a.n - full * kPack;
-  if (fill) {
-    for (int u = 0; u < fill; ++u) step(full * kPack + u, u);
-    store_words<R, kCanon>(a, s, prow, full, fill);
-  }
+  val::for_words<kPack>(a.n, step, [&](int w, int fill) {
+    val::store_words<R, 2, kCanon>(s.word, prow, a.nc, w, fill);
+  });
   if (kLocal) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (s.best[r] > gbest) {
-        gbest = s.best[r];
-        gi = i0 + r;
-        gj = s.barg[r];
-      }
-    }
+    res.fold_rows(s.best, s.barg, i0);
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (r == cap_row) garg = s.barg[r];
+      if (r == cap_row) res.nw_arg = s.barg[r];
   }
 }
 
-template <bool kLocal, bool kCanon>
-__global__ void __launch_bounds__(kThreads) align_kernel(AlignArgs a) {
+template <bool kLocal, bool kCanon, int kMat>
+__global__ void __launch_bounds__(val::kThreads) align_kernel(AlignArgs a) {
+  extern __shared__ int32_t smem[];
+  const int32_t *tab;
+  const uint8_t *vtab;
+  val::matrix_prologue<kMat>(a.table, a.valid, a.s, smem, tab, vtab);
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.b) return;
   const int mrp = kLocal ? -1 : a.mrp[p];
@@ -206,43 +206,27 @@ __global__ void __launch_bounds__(kThreads) align_kernel(AlignArgs a) {
     int32_t *hsel_row = a.hsel + (size_t)p * (a.n + 1);
     for (int j = 0; j <= a.n; ++j) hsel_row[j] = 0;
   }
-  int gbest = 0, gi = 0, gj = 0, garg = 0;
-  int i0 = 0;
-  for (; i0 + kRows <= a.m; i0 += kRows)
-    sweep<kRows, kLocal, kCanon>(a, p, i0, mrp, gbest, gi, gj, garg);
-  for (; i0 < a.m; ++i0)
-    sweep<1, kLocal, kCanon>(a, p, i0, mrp, gbest, gi, gj, garg);
-  int32_t *aux = a.aux + (size_t)p * 4;
-  if (kLocal) {
-    aux[0] = gbest >> 2;
-    aux[1] = gi;
-    aux[2] = gj;
-  } else {
-    aux[0] = garg;
-    aux[1] = 0;
-    aux[2] = 0;
-  }
-  aux[3] = 0;
-}
-
-template <bool kLocal>
-void launch(const AlignArgs &a, bool canonical, cudaStream_t s) {
-  const dim3 grid((a.b + kThreads - 1) / kThreads);
-  if (canonical)
-    align_kernel<kLocal, true><<<grid, kThreads, 0, s>>>(a);
-  else
-    align_kernel<kLocal, false><<<grid, kThreads, 0, s>>>(a);
+  val::FillResult res;
+  val::for_sweeps(a.m, [&](auto R, int i0) {
+    sweep<decltype(R)::value, kLocal, kCanon, kMat>(a, tab, vtab, p, i0, mrp,
+                                                    res);
+  });
+  res.write_aux(a.aux + (size_t)p * 4, kLocal);
 }
 
 }  // namespace
 
 // Launch on `stream`; b >= 1, m >= 1, n >= 1; hsel may be null for SW.
-// Returns cudaGetLastError().
+// `table` is the (s, s) matrix already shifted << 2 and `valid` its (s,)
+// validity bytes, or both null for the default DNA scoring. Returns
+// cudaGetLastError().
 extern "C" int val_align_launch(const void *reads, const void *refs,
                                 const void *mrp, void *h, void *ptr, void *aux,
-                                void *hsel, int b, int m, int n, int match,
-                                int mismatch, int gap_read, int gap_ref,
-                                int local, int canonical, void *stream) {
+                                void *hsel, const void *table,
+                                const void *valid, int b, int m, int n, int s,
+                                int match, int mismatch, int gap_read,
+                                int gap_ref, int local, int canonical,
+                                void *stream) {
   AlignArgs a{static_cast<const uint8_t *>(reads),
               static_cast<const uint8_t *>(refs),
               static_cast<const int32_t *>(mrp),
@@ -250,13 +234,18 @@ extern "C" int val_align_launch(const void *reads, const void *refs,
               static_cast<int32_t *>(ptr),
               static_cast<int32_t *>(aux),
               static_cast<int32_t *>(hsel),
-              b, m, n, (n + kPack - 1) / kPack,
+              static_cast<const int32_t *>(table),
+              static_cast<const uint8_t *>(valid),
+              b, m, n, (n + kPack - 1) / kPack, s,
               match * 4, mismatch * 4, gap_read * 4, gap_ref * 4,
               gap_ref};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (local)
-    launch<true>(a, canonical != 0, s);
-  else
-    launch<false>(a, canonical != 0, s);
+  const size_t table_bytes = sizeof(int32_t) * s * s + s;
+  val::dispatch(local, canonical, table, table_bytes,
+                [&](auto kLocal, auto kCanon, auto kMat) {
+    align_kernel<decltype(kLocal)::value, decltype(kCanon)::value,
+                 decltype(kMat)::value>
+        <<<val::grid_for(b), val::kThreads, kMat == 1 ? table_bytes : 0,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,7 +70,7 @@ def _load() -> ctypes.CDLL:
 
 
 def decode_batch_native(
-    ptr,  # (words (b, m, nc) int32, pack) tuple of packed 2-bit codes
+    ptr,  # (words (b, m, nc) int32, pack) tuple of packed codes
     reads: np.ndarray,
     refs: np.ndarray,
     start_read_pos: np.ndarray,
@@ -81,11 +81,14 @@ def decode_batch_native(
     read_texts: list[str] | None = None,
     ref_texts: list[str] | None = None,
     n_threads: int | None = None,
+    affine: bool = False,
     raw: bool = False,
     gapped: bool = True,
 ):
     """Batch traceback decode of packed pointer words through the C++
-    walker.
+    walker: 2-bit linear move codes, or with ``affine=True`` 4-bit Gotoh
+    codes (``hptr | e_ext<<2 | f_ext<<3``) walked by the three-state
+    machine of ``gotoh._affine_traceback``.
 
     ``raw=True`` returns an :class:`AlignmentBatch` column store instead of a
     list of :class:`Alignment` objects; ``gapped=False`` (raw only) skips the
@@ -141,7 +144,7 @@ def decode_batch_native(
         params.score_match, params.score_mismatch,
         params.score_gap_read, params.score_gap_ref,
         1 if Algorithm(algorithm) == Algorithm.NEEDLEMAN_WUNSCH else 0,
-        0,
+        1 if affine else 0,
         None if read_g is None else read_g.ctypes.data_as(ctypes.c_void_p),
         None if ref_g is None else ref_g.ctypes.data_as(ctypes.c_void_p),
         cigar.ctypes.data_as(ctypes.c_void_p),

@@ -53,8 +53,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    """Where ``csrc/<source>`` is built: ``build/<stem>-<digest>.so``."""
+    """Where ``csrc/<source>`` is built: ``build/<stem>-<digest>.so``. The
+    digest covers the source, the headers of ``csrc/`` and the flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{pathlib.Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -1,15 +1,18 @@
-"""Full alignment through ``csrc/align.cu`` and the host decoder — the
-counterpart of the linear half of ``versalignlib_tpu/ops/pallas_align.py``
-(``pallas_align_batch``, ``_decode_chunk``).
+"""Full alignment through ``csrc/align.cu`` or ``csrc/align_affine.cu`` and
+the host decoder — the counterpart of ``versalignlib_tpu/ops/pallas_align.py``
+(``pallas_align_batch``, ``pallas_align_affine_batch`` and their
+``_decode_chunk`` / ``_decode_affine_chunk``).
 
-The device fills packed pointer words, the aux word and (NW) ``hsel``; the
-host derives each pair's traceback start cell and score from them and walks
-the pointers with the native decoder. Pairs go through in chunks sized by a
+The device fills packed pointer words (2-bit linear codes, 16 per word, or
+4-bit Gotoh codes, 8 per word), the aux word and (NW) ``hsel``; the host
+derives each pair's traceback start cell and score from them and walks the
+pointers with the native decoder. Pairs go through in chunks sized by a
 budget of device memory, and the fill of chunk k+1 is queued before chunk k
 is decoded, so the card works while the host walks.
 
-A tensor on the CPU goes to :func:`plain.align_batch`; a CUDA tensor
-launches the kernel or raises.
+A tensor on the CPU goes to the plain version (:func:`plain.align_batch`,
+:func:`plain.align_affine_batch`); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -24,71 +27,72 @@ from versalignlib_tpu_torch.native import decode_batch_native
 from versalignlib_tpu_torch.ops import plain
 from versalignlib_tpu_torch.ops import traceback as tb
 from versalignlib_tpu_torch.ops._build import CudaKernel
-from versalignlib_tpu_torch.ops.cuda_score import check_codes, check_supported
+from versalignlib_tpu_torch.ops.cuda_score import check_codes, matrix_tables
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, AlignmentBatch, TieBreak
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: The pointer-fill kernel; ``ALIGN_KERNEL.launches`` counts its launches.
+#: The linear pointer-fill kernel; ``ALIGN_KERNEL.launches`` counts its
+#: launches.
 ALIGN_KERNEL = CudaKernel(
-    "align.cu", "val_align_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    "align.cu", "val_align_launch", [_P] * 9 + [_I] * 10 + [_P])
+
+#: The affine (Gotoh) pointer-fill kernel, with its own launch count.
+AFFINE_KERNEL = CudaKernel(
+    "align_affine.cu", "val_align_affine_launch", [_P] * 10 + [_I] * 12 + [_P])
 
 PACK = plain.PACK
+AFFINE_PACK = plain.AFFINE_PACK
 
-#: Packed pointer bytes per chunk: 256 MiB is 4096 pairs at 512 x 512.
+#: Packed pointer bytes per chunk: 256 MiB is 4096 pairs at 512 x 512 with
+#: 2-bit codes.
 CHUNK_PTR_BYTES = 256 << 20
 
 
-def align_mem_plan(m: int, n: int, batch: int) -> int:
+def align_mem_plan(m: int, n: int, batch: int, affine: bool = False) -> int:
     """Device bytes the fill allocates for ``batch`` pairs of m x n: the
-    codes and their pair-interleaved copies, mrp, the (n, B) H row, the
-    packed pointers, aux and hsel."""
-    nc = -(-n // PACK)
-    return batch * (2 * (m + n) + 4 + 4 * n + 4 * m * nc + 16 + 4 * (n + 1))
+    codes and their pair-interleaved copies, mrp, the (n, B) H row (and F
+    row when affine), the packed pointers (16 codes per word, 8 when
+    affine), aux and hsel."""
+    nc = -(-n // (AFFINE_PACK if affine else PACK))
+    rows = 2 if affine else 1
+    return batch * (2 * (m + n) + 4 + 4 * n * rows + 4 * m * nc + 16 + 4 * (n + 1))
 
 
-def chunk_pairs_for(m: int, n: int, sm_count: int) -> int:
+def chunk_pairs_for(m: int, n: int, sm_count: int, pack: int = PACK) -> int:
     """Pairs per device round: as many as :data:`CHUNK_PTR_BYTES` of packed
-    pointers hold, in whole warps of 32, but never fewer than one warp per
-    SM: the kernel runs one thread per pair, and a smaller launch leaves SMs
-    idle for the same time (PERF.md)."""
-    per_pair = 4 * m * -(-n // PACK)
+    pointers (``pack`` codes per word) hold, in whole warps of 32, but never
+    fewer than one warp per SM: the kernels run one thread per pair, and a
+    smaller launch leaves SMs idle for the same time (PERF.md)."""
+    per_pair = 4 * m * -(-n // pack)
     return max(32 * sm_count, CHUNK_PTR_BYTES // per_pair // 32 * 32)
 
 
-def last_valid_pos(codes: np.ndarray, tie: TieBreak) -> np.ndarray:
+def last_valid_pos(codes: np.ndarray, tie: TieBreak, matrix=None) -> np.ndarray:
     """The reference's max_*_pos: the index before the first invalid code,
     else len-1. Canonical flavor: any code but 0 is valid; SSE flavor: only
-    A/C/G/T (pallas_align.py:508-522)."""
+    the codes with a nonzero score (A/C/G/T, or ``valid_code_mask(matrix)``)
+    (pallas_align.py:508-522)."""
     if TieBreak(tie) == TieBreak.DIAG_UP_LEFT:
         invalid = codes == 0
     else:
-        invalid = ~make_validity()(codes)
+        invalid = ~make_validity(matrix)(codes)
     any_inv = invalid.any(axis=1)
     return np.where(any_inv, invalid.argmax(axis=1) - 1,
                     codes.shape[1] - 1).astype(np.int32)
 
 
-def fill(reads: torch.Tensor, refs: torch.Tensor, mrp: torch.Tensor,
-         params: AlignmentParameters, algorithm: Algorithm, tie: TieBreak):
-    """Pointer fill of (B, m), (B, n) uint8 codes with (B,) int32 mrp, on
-    their device: ``(ptr (B, m, ceil(n/16)), aux (B, 4), hsel (B, n+1) or
-    None)``, all int32 (see ``csrc/align.cu``). m, n >= 1."""
-    check_supported(params)
-    check_codes(reads, refs)
+def _launch_fill(reads, refs, mrp, params, algorithm, tie):
+    """Allocate the outputs and scratch of one fill and launch the kernel of
+    the parameters' branch."""
+    affine = params.affine
+    kernel, pack = (AFFINE_KERNEL, AFFINE_PACK) if affine else (ALIGN_KERNEL, PACK)
     b, m = reads.shape
     n = refs.shape[1]
-    if m == 0 or n == 0:
-        raise ValueError("the pointer fill needs m >= 1 and n >= 1")
-    if mrp.shape != (b,) or mrp.dtype != torch.int32 or mrp.device != reads.device:
-        raise ValueError("mrp must be (B,) int32 on the codes' device")
-    if reads.device.type == "cpu":
-        return plain.align_batch(reads, refs, mrp, params, algorithm, tie)
     local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
     dev = reads.device
-    ptr = torch.empty((b, m, -(-n // PACK)), dtype=torch.int32, device=dev)
+    ptr = torch.empty((b, m, -(-n // pack)), dtype=torch.int32, device=dev)
     aux = torch.empty((b, 4), dtype=torch.int32, device=dev)
     hsel = None if local else torch.empty((b, n + 1), dtype=torch.int32, device=dev)
     if b == 0:
@@ -96,30 +100,59 @@ def fill(reads: torch.Tensor, refs: torch.Tensor, mrp: torch.Tensor,
     reads_t = reads.t().contiguous()
     refs_t = refs.t().contiguous()
     mrp = mrp.contiguous()
-    h = torch.empty((n, b), dtype=torch.int32, device=dev)
-    ALIGN_KERNEL.launch(
-        reads_t.data_ptr(), refs_t.data_ptr(), mrp.data_ptr(), h.data_ptr(),
+    scratch = [torch.empty((n, b), dtype=torch.int32, device=dev)
+               for _ in range(2 if affine else 1)]
+    table = valid = None
+    if params.matrix is not None:
+        table, valid = matrix_tables(params.matrix, 2, dev)
+    gaps = [params.score_gap_read, params.score_gap_ref]
+    if affine:
+        gaps += [params.gap_open_read, params.gap_open_ref]
+    kernel.launch(
+        reads_t.data_ptr(), refs_t.data_ptr(), mrp.data_ptr(),
+        *(x.data_ptr() for x in scratch),
         ptr.data_ptr(), aux.data_ptr(), None if hsel is None else hsel.data_ptr(),
-        b, m, n, params.score_match, params.score_mismatch,
-        params.score_gap_read, params.score_gap_ref, int(local),
-        int(TieBreak(tie) == TieBreak.DIAG_UP_LEFT),
+        None if table is None else table.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        b, m, n, params.sub_size, params.score_match, params.score_mismatch,
+        *gaps, int(local), int(TieBreak(tie) == TieBreak.DIAG_UP_LEFT),
         torch.cuda.current_stream(dev).cuda_stream)
     return ptr, aux, hsel
 
 
+def fill(reads: torch.Tensor, refs: torch.Tensor, mrp: torch.Tensor,
+         params: AlignmentParameters, algorithm: Algorithm, tie: TieBreak):
+    """Pointer fill of (B, m), (B, n) uint8 codes with (B,) int32 mrp, on
+    their device: ``(ptr, aux (B, 4), hsel (B, n+1) or None)``, all int32.
+    Linear gaps fill ptr (B, m, ceil(n/16)) with 2-bit codes
+    (``csrc/align.cu``); affine gaps fill ptr (B, m, ceil(n/8)) with 4-bit
+    Gotoh codes (``csrc/align_affine.cu``), as ``pallas_align_batch`` routes
+    them. m, n >= 1."""
+    check_codes(reads, refs)
+    if reads.shape[1] == 0 or refs.shape[1] == 0:
+        raise ValueError("the pointer fill needs m >= 1 and n >= 1")
+    if mrp.shape != (reads.shape[0],) or mrp.dtype != torch.int32 \
+            or mrp.device != reads.device:
+        raise ValueError("mrp must be (B,) int32 on the codes' device")
+    if reads.device.type == "cpu":
+        plain_fill = plain.align_affine_batch if params.affine else plain.align_batch
+        return plain_fill(reads, refs, mrp, params, algorithm, tie)
+    return _launch_fill(reads, refs, mrp, params, algorithm, tie)
+
+
 def start_cells(aux: np.ndarray, hsel: np.ndarray | None, mrp: np.ndarray,
-                refs: np.ndarray, tie: TieBreak, local: bool):
+                refs: np.ndarray, tie: TieBreak, local: bool, matrix=None):
     """Traceback start cell and score per pair from the fill's outputs.
 
     SW: the aux word is the folded argmax. NW: the end cell is
     ``(mrp, min(max_ref_pos, aux[0]))`` and its score is read from ``hsel``
     (0 when mrp < 0, where the end cell is on the boundary row)
-    (pallas_align.py:651-668).
+    (pallas_align.py:651-668, 1180-1192).
     """
     if local:
         return aux[:, 1].copy(), aux[:, 2].copy(), aux[:, 0].copy()
     n = refs.shape[1]
-    start_f = np.minimum(last_valid_pos(refs, tie), aux[:, 0]).astype(np.int32)
+    start_f = np.minimum(last_valid_pos(refs, tie, matrix), aux[:, 0]).astype(np.int32)
     scores = np.where(
         mrp >= 0, hsel[np.arange(len(mrp)), np.clip(start_f, -1, n - 1) + 1], 0
     ).astype(np.int32)
@@ -141,7 +174,8 @@ def align_batch(
     gapped: bool = True,
 ):
     """Full-batch alignment of (B, m), (B, n) uint8 codes: pointer fill on
-    ``device``, traceback on the host.
+    ``device``, traceback on the host. Affine parameters go through the
+    Gotoh fill and walk, as ``pallas_align_batch`` routes them.
 
     Returns a list of :class:`Alignment`, or with ``raw=True`` an
     :class:`AlignmentBatch` column store; ``gapped=False`` (raw only) leaves
@@ -151,10 +185,11 @@ def align_batch(
         raise NotImplementedError(
             "the traceback walk on the device is not ported yet (ROADMAP A5); "
             "use device_walk=False, which walks on the host")
-    check_supported(params)
     algorithm = Algorithm(algorithm)
     tie = TieBreak(tie)
     local = algorithm == Algorithm.SMITH_WATERMAN
+    affine = params.affine
+    pack = AFFINE_PACK if affine else PACK
     device = torch.device(device)
     b, m = reads.shape
     n = refs.shape[1]
@@ -168,12 +203,12 @@ def align_batch(
     if chunk_pairs is None:
         sms = (torch.cuda.get_device_properties(device).multi_processor_count
                if device.type == "cuda" else 1)
-        chunk_pairs = chunk_pairs_for(m, n, sms)
+        chunk_pairs = chunk_pairs_for(m, n, sms, pack)
 
     def dispatch(lo):
         r_np = np.ascontiguousarray(reads[lo:lo + chunk_pairs], np.uint8)
         f_np = np.ascontiguousarray(refs[lo:lo + chunk_pairs], np.uint8)
-        mrp = last_valid_pos(r_np, tie)
+        mrp = last_valid_pos(r_np, tie, params.matrix)
         out = fill(torch.from_numpy(r_np).to(device),
                    torch.from_numpy(f_np).to(device),
                    torch.from_numpy(mrp).to(device), params, algorithm, tie)
@@ -194,14 +229,14 @@ def align_batch(
             done.synchronize()
         start_r, start_f, scores = start_cells(
             aux.numpy(), None if hsel is None else hsel.numpy(), mrp, f_np,
-            tie, local)
+            tie, local, params.matrix)
         nb = r_np.shape[0]
         return decode_batch_native(
-            (ptr.numpy(), PACK), r_np, f_np, start_r, start_f, params,
+            (ptr.numpy(), pack), r_np, f_np, start_r, start_f, params,
             algorithm, scores,
             None if read_texts is None else read_texts[lo:lo + nb],
             None if ref_texts is None else ref_texts[lo:lo + nb],
-            raw=raw, gapped=gapped)
+            affine=affine, raw=raw, gapped=gapped)
 
     results = []
     pending = None

@@ -1,9 +1,10 @@
 """Dispatcher backend wiring the CUDA kernels — the counterpart of
 ``versalignlib_tpu/ops/pallas_backend.py``.
 
-Scores come from ``csrc/score.cu``; alignments from ``csrc/align.cu`` plus
-the host decoder. On a CUDA device, a pair shape whose memory plan exceeds
-the card is refused before any launch. There is no other backend to fall
+Scores come from ``csrc/score.cu``; alignments from ``csrc/align.cu``, or
+``csrc/align_affine.cu`` under affine gaps, plus the host decoder. On a CUDA
+device, a pair shape whose memory plan exceeds the card is refused before
+any launch. There is no other backend to fall
 back to.
 """
 
@@ -27,24 +28,24 @@ class CudaBackend:
     def is_available(self) -> bool:
         return self.device.type == "cpu" or torch.cuda.is_available()
 
-    def _check_dense_fits(self, reads, refs, mode: str) -> None:
+    def _check_dense_fits(self, reads, refs, params, mode: str) -> None:
         if self.device.type != "cuda":
             return
         caps = probe(self.device.index or 0)
         m, n = reads.shape[1], refs.shape[1]
-        if not caps.dense_fits(m, n, mode):
+        if not caps.dense_fits(m, n, mode, params.affine):
             raise ValueError(
                 f"dense {m}x{n} pairs exceed the memory of {caps.name} "
                 f"({caps.memory_bytes >> 20} MiB) under the {mode} kernel's plan")
 
     def score_alignments(self, algorithm, reads, refs, params):
-        self._check_dense_fits(reads, refs, "score")
+        self._check_dense_fits(reads, refs, params, "score")
         return self._scorer(reads, refs, params, Algorithm(algorithm))
 
     def compute_alignments(self, algorithm, reads, refs, params, tie,
                            device_walk: bool = False, raw: bool = False,
                            gapped: bool = True):
-        self._check_dense_fits(reads, refs, "align")
+        self._check_dense_fits(reads, refs, params, "align")
         return cuda_align.align_batch(
             reads, refs, params, Algorithm(algorithm), tie, device=self.device,
             raw=raw, device_walk=device_walk, gapped=gapped)

@@ -20,6 +20,11 @@ def _text_from_codes(codes: np.ndarray) -> str:
 
 
 def _sub_score(a: int, b: int, params: AlignmentParameters) -> int:
+    """``alphabet.substitution_scores`` of one pair of codes: the default
+    DNA table, or ``matrix[a][b]`` with codes outside [0, S) read as 0."""
+    if params.matrix is not None:
+        s = len(params.matrix)
+        return params.matrix[a if 0 <= a < s else 0][b if 0 <= b < s else 0]
     if not (1 <= a <= 4 and 1 <= b <= 4):
         return 0
     return params.score_match if a == b else params.score_mismatch

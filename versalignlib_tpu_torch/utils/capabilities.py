@@ -23,17 +23,18 @@ class DeviceCapabilities:
     #: "<watts> W" as nvidia-smi reports it; None where nvidia-smi is absent
     power_limit: str | None
 
-    def dense_fits(self, m: int, n: int, mode: str = "align") -> bool:
+    def dense_fits(self, m: int, n: int, mode: str = "align",
+                   affine: bool = False) -> bool:
         """Whether one warp of 32 pairs of m x n, the smallest batch a
         kernel launch covers, fits the device memory under the kernels' own
-        plans (``mode`` "score" or "align")."""
+        plans (``mode`` "score" or "align"; ``affine`` for Gotoh gaps)."""
         if mode == "score":
             from versalignlib_tpu_torch.ops.cuda_score import score_mem_plan
 
-            return score_mem_plan(m, n, 32) <= self.memory_bytes
+            return score_mem_plan(m, n, 32, affine) <= self.memory_bytes
         from versalignlib_tpu_torch.ops.cuda_align import align_mem_plan
 
-        return align_mem_plan(m, n, 32) <= self.memory_bytes
+        return align_mem_plan(m, n, 32, affine) <= self.memory_bytes
 
 
 def _power_limit(index: int) -> str | None:
