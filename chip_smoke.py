@@ -1,11 +1,16 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
-The path is ``AlignmentEngine.score_alignments`` and ``compute_alignments``
-under four parameter sets (``_param_sets``): the reference's default DNA
-scoring, BWA-MEM's affine DNA gaps, and BLOSUM62 protein scoring with
-BLASTP's affine gaps or with linear gaps.
+The pairwise path is ``AlignmentEngine.score_alignments`` and
+``compute_alignments`` under four parameter sets (``_param_sets``): the
+reference's default DNA scoring, BWA-MEM's affine DNA gaps, and BLOSUM62
+protein scoring with BLASTP's affine gaps or with linear gaps. The search
+paths run the one-vs-many kernel (``csrc/search.cu``) through
+``map_reads`` (under the first two sets), ``map_to_reference``,
+``profile_search`` and ``translated_search`` at real sizes (``SEARCH_*``
+below), each checked on a subset against the same entry point with the
+kernel's wrapper swapped for its plain version on the card.
 
 Phases (any failure exits non-zero before a result is printed):
 
@@ -29,17 +34,33 @@ Phases (any failure exits non-zero before a result is printed):
    max, for each branch: the kernel, its plain version, the bound, and the
    split of ``compute_alignments(raw=True)`` into device fill,
    device-to-host copy and host decode;
-5. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+5. every branch of the one-vs-many kernel against its plain version with
+   ``==``: at each search path's launch shape, on a slice of its queries at
+   the full pool size; at odd shapes (m, n not multiples of 16) in both
+   orientations with codes past S; and with profiles of 100 KB (shared
+   memory past the 48 KB default) and 250 KB (read-only cache);
+6. the search paths, each with the launch counts set to 0 just before its
+   run and read just after (the one-vs-many kernel must have launched, and
+   the fill kernel of its parameters where the path aligns on the card),
+   its wall time split into the one-vs-many kernel (CUDA events), the align
+   path (host clock) and the rest, 64 reads (profiles: all 8 on a 4096-entry
+   slice) checked field by field against the plain reference, and the
+   planted reads, entries and instances found where they were planted;
+7. times of the one-vs-many kernel at each path's launch shape (median of
+   7, min, max, GCUPS), its plain version's at the slice shape, the bound;
+8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
 standard residues with about 1% X, both with random trailing padding, made
-with numpy from ``--seed``. Nothing of JAX is imported.
+with numpy from ``--seed``; the search paths' inputs are described at
+``make_*``. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -67,10 +88,16 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #: - affine: F = max(up + open, F_up) + gap and E alike are three
 #:   operations each where a linear gap arm is one add (+4), and in the
 #:   fills each extend bit is a compare, a select and an or (+6).
+#: The one-vs-many kernel computes the score recurrence, so it counts as the
+#: score branch of its gap model, matrix and PSSM alike; its coordinates
+#: add SEARCH_COORDS_OPS (a compare and a column select; the max is already
+#: counted).
 OPS_PER_CELL = {
     ("score", "linear"): (8, 7), ("score", "affine"): (12, 11),
     ("align", "linear"): (16, 15), ("align", "affine"): (26, 25),
+    ("search", "linear"): (8, 7), ("search", "affine"): (12, 11),
 }
+SEARCH_COORDS_OPS = 2
 
 REPS = 7
 PLAIN_REPS = 3
@@ -84,6 +111,29 @@ LENGTH = 512
 SCORE_PAIRS, ALIGN_PAIRS, OBJECT_PAIRS, CHECK_PAIRS = 16384, 4096, 256, 64
 ODD_SHAPE = (1024, 150, 509)
 BIG_MATRIX_SHAPE = (512, 64, 77)
+
+#: The search paths' sizes. map_reads: SEARCH_READS Illumina reads of
+#: READ_LEN bp against SEARCH_PANEL entries of PANEL_LEN bp (16S-gene
+#: length). map_to_reference: REFMAP_READS reads against one reference of
+#: GENOME_LEN bp (E. coli K-12 MG1655's length). profile_search: PROFILES
+#: protein profiles of PROFILE_LEN positions against POOL proteins of
+#: POOL_LEN residues (one default chunk), checked on the first POOL_SLICE.
+#: translated_search: TRANSLATED_READS reads against PROTEINS proteins of
+#: POOL_LEN residues. SEARCH_CHECK reads of each are checked field by field.
+READ_LEN = 150
+SEARCH_READS, SEARCH_PANEL, PANEL_LEN = 2048, 512, 1536
+REFMAP_READS, GENOME_LEN = 256, 4_641_652
+PROFILES, PROFILE_LEN, POOL, POOL_LEN, POOL_SLICE = 8, 256, 131072, 512, 4096
+PLANTED_PER_PROFILE = 5
+TRANSLATED_READS, PROTEINS = 1024, 2048
+SEARCH_CHECK = 64
+#: Queries of each search launch shape that the plain version scores
+#: against the full pool (the plain version of a whole launch would take
+#: minutes), and the odd shapes of the branch sweep: (queries, m) against
+#: (pool, n), both orientations.
+PLAIN_QUERIES = {"map_reads": 16, "map_to_reference": 16, "profile_search": 1,
+                 "translated_search": 16}
+SEARCH_ODD = ((37, 45), (300, 77))
 
 
 def _param_sets() -> dict:
@@ -505,6 +555,512 @@ def _entry(name, params_name, source, replaces, launches, err, shape, t) -> dict
     }
 
 
+# ---------------------------------------------------------------------------
+# The search paths: the one-vs-many kernel (csrc/search.cu)
+# ---------------------------------------------------------------------------
+
+def _profile_params():
+    """Protein profile search: gaps open -22, extend -2, on the scale of
+    BLOSUM62 x 2 (BLASTP's -11 / -1 doubled with the scores)."""
+    from versalignlib_tpu_torch.params import AlignmentParameters
+
+    return AlignmentParameters(score_gap_read=-2, score_gap_ref=-2,
+                               gap_open_read=-22, gap_open_ref=-22)
+
+
+def _substitute(rng, codes: np.ndarray, rate: float, size: int) -> np.ndarray:
+    """Replace about ``rate`` of the codes (1..size) with another code."""
+    other = (codes.astype(np.int64) - 1 + rng.integers(1, size, size=codes.shape)) % size + 1
+    return np.where(rng.random(codes.shape) < rate, other, codes).astype(np.uint8)
+
+
+def make_map_reads(rng):
+    """SEARCH_PANEL random A/C/G/T entries of PANEL_LEN bp, and SEARCH_READS
+    reads of READ_LEN bp drawn from them with 1% substitutions and 2% N,
+    half reverse-complemented: (reads, panel, source entry, reverse)."""
+    from versalignlib_tpu_torch.alphabet import reverse_complement_codes
+
+    panel = rng.integers(1, 5, size=(SEARCH_PANEL, PANEL_LEN)).astype(np.uint8)
+    src = rng.integers(0, SEARCH_PANEL, size=SEARCH_READS)
+    off = rng.integers(0, PANEL_LEN - READ_LEN + 1, size=SEARCH_READS)
+    reads = _substitute(rng, panel[src[:, None], off[:, None] + np.arange(READ_LEN)], 0.01, 4)
+    reads = np.where(rng.random(reads.shape) < 0.02, np.uint8(5), reads)
+    rev = rng.random(SEARCH_READS) < 0.5
+    reads[rev] = reverse_complement_codes(reads[rev])
+    return reads, panel, src, rev
+
+
+def make_genome(rng):
+    """One random A/C/G/T reference of GENOME_LEN bp and REFMAP_READS exact
+    reads of READ_LEN bp planted at random positions, half
+    reverse-complemented: (reads, genome, position, reverse)."""
+    from versalignlib_tpu_torch.alphabet import reverse_complement_codes
+
+    genome = rng.integers(1, 5, size=GENOME_LEN).astype(np.uint8)
+    pos = rng.integers(0, GENOME_LEN - READ_LEN + 1, size=REFMAP_READS)
+    reads = genome[pos[:, None] + np.arange(READ_LEN)]
+    rev = rng.random(REFMAP_READS) < 0.5
+    reads[rev] = reverse_complement_codes(reads[rev])
+    return reads, genome, pos, rev
+
+
+def make_profiles(rng):
+    """PROFILES protein profiles, each the BLOSUM62 rows of a random
+    consensus of PROFILE_LEN residues times 2 (entries -8..22, so 8-bit
+    fields), and a pool of POOL random proteins of POOL_LEN residues with
+    PLANTED_PER_PROFILE instances of each consensus (10% substitutions)
+    planted in its first POOL_SLICE entries: (profiles, pool, planted)."""
+    from versalignlib_tpu_torch.alphabet import blosum62
+
+    blosum = np.array(blosum62(), dtype=np.int32)
+    cons = rng.integers(1, 21, size=(PROFILES, PROFILE_LEN))
+    profiles = [2 * blosum[c] for c in cons]
+    pool = rng.integers(1, 21, size=(POOL, POOL_LEN)).astype(np.uint8)
+    planted = rng.choice(POOL_SLICE, size=PROFILES * PLANTED_PER_PROFILE,
+                         replace=False).reshape(PROFILES, PLANTED_PER_PROFILE)
+    for k in range(PROFILES):
+        for e in planted[k]:
+            off = rng.integers(0, POOL_LEN - PROFILE_LEN + 1)
+            pool[e, off:off + PROFILE_LEN] = _substitute(rng, cons[k], 0.1, 20)
+    return profiles, pool, planted
+
+
+def make_translated(rng):
+    """PROTEINS random proteins of POOL_LEN residues, and TRANSLATED_READS
+    DNA reads of READ_LEN bp, each the back-translation of READ_LEN / 3
+    residues of one protein, half reverse-complemented: (reads, proteins,
+    source protein, reverse)."""
+    from versalignlib_tpu_torch.alphabet import (PROTEIN_ALPHABET, pad_and_encode,
+                                                 reverse_complement_codes)
+    from versalignlib_tpu_torch.translate import GENETIC_CODE
+
+    codon = {aa: c for c, aa in GENETIC_CODE.items()}
+    proteins = rng.integers(1, 21, size=(PROTEINS, POOL_LEN)).astype(np.uint8)
+    n_aa = READ_LEN // 3
+    src = rng.integers(0, PROTEINS, size=TRANSLATED_READS)
+    off = rng.integers(0, POOL_LEN - n_aa + 1, size=TRANSLATED_READS)
+    reads = pad_and_encode(["".join(codon[PROTEIN_ALPHABET[c - 1]] for c in proteins[s, o:o + n_aa])
+                            for s, o in zip(src, off)])
+    rev = rng.random(TRANSLATED_READS) < 0.5
+    reads[rev] = reverse_complement_codes(reads[rev])
+    return reads, proteins, src, rev
+
+
+def frame_queries(reads: np.ndarray) -> np.ndarray:
+    """The six frame translations of each read, encoded, as
+    ``translated_search`` scores them."""
+    from versalignlib_tpu_torch.alphabet import PROTEIN_ALPHABET, encode_custom
+    from versalignlib_tpu_torch.translate import FRAMES, translate_codes
+
+    return encode_custom([translate_codes(r[:np.count_nonzero(r)], f)
+                          for r in reads for f in FRAMES], PROTEIN_ALPHABET)
+
+
+def make_search_data(rng) -> dict:
+    from versalignlib_tpu_torch.refmap import tile_references
+
+    data = {"map_reads": make_map_reads(rng), "map_to_reference": make_genome(rng),
+            "profile_search": make_profiles(rng), "translated_search": make_translated(rng)}
+    genome = data["map_to_reference"][1]
+    window = -(-4 * READ_LEN // 128) * 128   # map_to_reference's default
+    data["windows"] = tile_references(genome, window, window // 2).windows
+    data["frames"] = frame_queries(data["translated_search"][0])
+    return data
+
+
+def search_launches(data) -> dict:
+    """Each search path's one-vs-many launch as its entry point makes it:
+    name -> (params, queries, pool, kind), kind "cross" (reads, refs) or
+    "profile" (table, pool). ``map_reads`` scores all reads against the
+    whole panel (the reads are the pool), ``map_to_reference`` all reads
+    against one chunk of 2^20 / 256 windows (the windows are the pool),
+    ``profile_search`` all profiles against the pool, and
+    ``translated_search`` all frame queries against one chunk of
+    2^20 // 6144 proteins (the frame queries are the pool)."""
+    sets = _param_sets()
+    reads, panel = data["map_reads"][:2]
+    rm_reads = data["map_to_reference"][0]
+    profiles, pool = data["profile_search"][:2]
+    proteins = data["translated_search"][1]
+    frames = data["frames"]
+    from versalignlib_tpu_torch.translate import TRANSLATED_PARAMETERS
+
+    return {
+        "map_reads,dna_default": (sets["dna_default"], reads, panel, "cross"),
+        "map_reads,dna_affine_bwamem": (sets["dna_affine_bwamem"], reads, panel, "cross"),
+        "map_to_reference": (sets["dna_default"], rm_reads,
+                             data["windows"][:(1 << 20) // REFMAP_READS], "cross"),
+        "profile_search": (_profile_params(), np.stack(profiles), pool, "profile"),
+        "translated_search": (TRANSLATED_PARAMETERS, frames,
+                              proteins[:(1 << 20) // frames.shape[0]], "cross"),
+    }
+
+
+def _plain_slice(kind: str, name: str, queries, pool):
+    """The slice of a launch that the plain version scores: PLAIN_QUERIES
+    of its queries (the smaller side) against the whole pool."""
+    q = PLAIN_QUERIES[name.split(",")[0]]
+    if kind == "profile":
+        return queries[:q], pool
+    if queries.shape[0] >= pool.shape[0]:        # the reads are the pool
+        return queries, pool[:q]
+    return queries[:q], pool
+
+
+def phase_search_kernels_vs_plain(rng, dev, data) -> dict:
+    """Every branch of the one-vs-many kernel against its plain version;
+    returns the max abs error per search path (0)."""
+    from versalignlib_tpu_torch.ops import cuda_search, plain
+    from versalignlib_tpu_torch.params import AlignmentParameters
+    from versalignlib_tpu_torch.types import Algorithm
+
+    err: dict[str, int] = {}
+    sw, nw = Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH
+
+    def hold(key, label, got, want):
+        err[key] = max(err.get(key, 0), check_equal(f"search.cu {key} {label}", got, want))
+
+    def cross(key, label, reads, refs, params):
+        r = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        f = torch.from_numpy(np.ascontiguousarray(refs)).to(dev)
+        for alg in Algorithm:
+            hold(key, f"{label} {alg.name}", cuda_search.cross_scores_device(r, f, params, alg),
+                 plain.cross_scores(r, f, params, alg))
+        side = "reads" if r.shape[0] > f.shape[0] else "refs"
+        log(f"[search] search.cu == plain  {key:30s} {label}: SW, NW; "
+            f"{r.shape[0]}x{r.shape[1]} reads vs {f.shape[0]}x{f.shape[1]} refs, pool = {side}")
+
+    def profile(key, label, table, pool, params):
+        t = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
+        p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
+        got = cuda_search.pssm_scores_device(t, p, params, sw, with_coords=True)
+        want = plain.profile_scores(t, p, params, sw, with_coords=True)
+        for part, g, w in zip(("score", "end_row", "end_col"), got, want):
+            hold(key, f"{label} SW {part}", g, w)
+        hold(key, f"{label} NW", cuda_search.pssm_scores_device(t, p, params, nw),
+             plain.profile_scores(t, p, params, nw))
+        log(f"[search] search.cu == plain  {key:30s} {label}: SW with coords, NW; "
+            f"{tuple(t.shape)} profiles vs {p.shape[0]}x{p.shape[1]} pool")
+
+    # Each path's launch, on a slice of its queries against the full pool.
+    for name, (params, queries, pool, kind) in search_launches(data).items():
+        q, p = _plain_slice(kind, name, queries, pool)
+        (profile if kind == "profile" else cross)(name, "launch slice", q, p, params)
+    # Odd shapes in both orientations, codes past S, every gap model and
+    # scoring; the errors count towards every path's entry.
+    odd = "odd shapes"
+    mat = _random_matrix(rng, 30)
+    for label, params, hi in (
+            ("dna linear", AlignmentParameters(score_gap_read=-2, score_gap_ref=-3), 8),
+            ("dna affine", AlignmentParameters(gap_open_read=-5, gap_open_ref=-4), 8),
+            ("matrix linear", AlignmentParameters(score_gap_read=-3, score_gap_ref=-2,
+                                                  matrix=mat), 36),
+            ("matrix affine", AlignmentParameters(score_gap_read=-1, score_gap_ref=-2,
+                                                  gap_open_read=-3, gap_open_ref=-4,
+                                                  matrix=mat), 36)):
+        for (qb, qm), (pb, pn) in (SEARCH_ODD, SEARCH_ODD[::-1]):
+            cross(odd, label, rng.integers(0, hi, size=(qb, qm)).astype(np.uint8),
+                  rng.integers(0, hi, size=(pb, pn)).astype(np.uint8), params)
+    lin = AlignmentParameters(score_gap_read=-3, score_gap_ref=-2)
+    aff = AlignmentParameters(score_gap_read=-1, score_gap_ref=-2, gap_open_read=-6,
+                              gap_open_ref=-5)
+    (k, m), (r, n) = (3, SEARCH_ODD[0][1]), SEARCH_ODD[1]
+    for lo, hi in ((-4, 11), (-60, 100)):           # 4-bit and 8-bit fields
+        table = rng.integers(lo, hi + 1, size=(k, m, 25)).astype(np.int32)
+        table[:, :, 0] = 0
+        pool = rng.integers(0, 31, size=(r, n)).astype(np.uint8)
+        for params in (lin, aff):
+            profile(odd, f"pssm {lo}..{hi} {'affine' if params.affine else 'linear'}",
+                    table, pool, params)
+    # Profiles past the 48 KB default: 100 KB in shared memory (opt-in) and
+    # 250 KB through the read-only cache.
+    for m_big in (1000, 2500):
+        table = rng.integers(-4, 12, size=(2, m_big, 25)).astype(np.int32)
+        table[:, :, 0] = 0
+        pool = rng.integers(0, 31, size=(256, 77)).astype(np.uint8)
+        for params in (lin, aff):
+            profile(odd, f"pssm {m_big * 25 * 4 // 1000} KB "
+                    f"{'affine' if params.affine else 'linear'}", table, pool, params)
+    torch.cuda.synchronize()
+    big = err.pop(odd)
+    return {key: max(e, big) for key, e in err.items()}
+
+
+class _LaunchTimer:
+    """While active, records CUDA events around each launch of ``kernel``;
+    ``ms()`` sums their device time."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.events = []
+
+    def __enter__(self):
+        launch = self.kernel.launch
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(*args)
+            end.record()
+            self.events.append((start, end))
+
+        self.kernel.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.kernel.launch
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+@contextlib.contextmanager
+def _host_timed(module, name: str, acc: list):
+    """While active, ``module.name`` appends its synchronised host time in
+    ms to ``acc`` on each call."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            acc.append(1e3 * (time.perf_counter() - t0))
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _plain_search():
+    """The reference runs: the one-vs-many kernel's wrapper swapped for its
+    plain version, which then runs on the card."""
+    from versalignlib_tpu_torch.ops import cuda_search, plain
+
+    saved = cuda_search.cross_scores_device, cuda_search.pssm_scores_device
+    cuda_search.cross_scores_device = plain.cross_scores
+    cuda_search.pssm_scores_device = plain.profile_scores
+    try:
+        yield
+    finally:
+        cuda_search.cross_scores_device, cuda_search.pssm_scores_device = saved
+
+
+def _run_path(name: str, fn, fill: str | None):
+    """Run ``fn`` once with every launch count set to 0 just before and read
+    just after; the one-vs-many kernel must have launched, and ``fill`` (the
+    fill kernel of the path's parameters) too, the other fill kernel not.
+    Returns (result, {"launches", "split"}), the split in ms: wall, the
+    one-vs-many kernel (CUDA events), the align path (host clock; its fill
+    kernels by CUDA events) and the rest."""
+    from versalignlib_tpu_torch.ops import cuda_align, pssm
+    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
+
+    kernels = {"search": SEARCH_KERNEL, "score": SCORE_KERNEL, "align": ALIGN_KERNEL,
+               "align_affine": AFFINE_KERNEL}
+    align_ms: list[float] = []
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    with _LaunchTimer(SEARCH_KERNEL) as b4, _LaunchTimer(ALIGN_KERNEL) as f1, \
+            _LaunchTimer(AFFINE_KERNEL) as f2, \
+            _host_timed(cuda_align, "align_batch", align_ms), \
+            _host_timed(pssm, "profile_align_oracle", align_ms):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in kernels.items()}
+    if launches["search"] < 1:
+        raise AssertionError(f"{name}: the path never launched the one-vs-many kernel")
+    for fill_kernel in ("align", "align_affine"):
+        if (fill_kernel == fill) != (launches[fill_kernel] >= 1):
+            raise AssertionError(f"{name}: {fill_kernel} launched {launches[fill_kernel]} "
+                                 f"times; the path's fill kernel is {fill}")
+    split = {"wall_ms": wall, "search_ms": b4.ms(), "align_ms": sum(align_ms),
+             "align_fill_ms": f1.ms() + f2.ms()}
+    split["rest_ms"] = wall - split["search_ms"] - split["align_ms"]
+    log(f"[path] {name}: launches {launches}; "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return result, {"launches": launches, "split": split}
+
+
+def _check_fields(name: str, got, want, rows, fields) -> None:
+    for field in fields:
+        g = np.asarray(getattr(got, field))
+        if rows is not None:
+            g = g[rows]
+        if not np.array_equal(g, np.asarray(getattr(want, field))):
+            raise AssertionError(f"{name}: {field} differs from the plain reference")
+
+
+def _check_alignments(name: str, got: list, want: list) -> None:
+    if len(got) != len(want) or not all(map(_same_alignment, got, want)):
+        raise AssertionError(f"{name}: alignments differ from the plain reference")
+
+
+def phase_search_paths(rng, data) -> dict:
+    """The four search entry points at full size, each checked on a subset
+    against its plain reference run, and the planted truth."""
+    from versalignlib_tpu_torch import (map_reads, map_to_reference, profile_search,
+                                        translated_search)
+
+    out = {}
+    reads, panel, src, rev = data["map_reads"]
+    pick = np.sort(rng.choice(reads.shape[0], SEARCH_CHECK, replace=False))
+    for pname in ("dna_default", "dna_affine_bwamem"):
+        params = _param_sets()[pname]
+        name = f"map_reads,{pname}"
+        hits, out[name] = _run_path(name, lambda: map_reads(reads, panel, params),
+                                    "align_affine" if params.affine else "align")
+        if not ((hits.index == src).all() and (hits.strand == rev).all()):
+            raise AssertionError(f"{name}: {(hits.index != src).sum()} reads off their "
+                                 f"entry, {(hits.strand != rev).sum()} off their strand")
+        with _plain_search():
+            want = map_reads(reads[pick], panel, params)
+        _check_fields(name, hits, want, pick, ("index", "score", "strand", "mapq"))
+        _check_alignments(name, [hits.alignments[i] for i in pick], want.alignments)
+        log(f"[path] {name}: {SEARCH_READS} reads vs {SEARCH_PANEL} x {PANEL_LEN} bp, both "
+            f"strands: every read on its entry and strand; {SEARCH_CHECK} == plain reference")
+
+    reads, genome, pos, rev = data["map_to_reference"]
+    name = "map_to_reference"
+    hits, out[name] = _run_path(name, lambda: map_to_reference(reads, genome), "align")
+    starts = np.array([a.ref_start for a in hits.alignments])
+    if not ((hits.ref_id == 0).all() and (hits.strand == rev).all() and (starts == pos).all()):
+        raise AssertionError(f"{name}: {(starts != pos).sum()} reads off their start, "
+                             f"{(hits.strand != rev).sum()} off their strand")
+    pick = np.sort(rng.choice(reads.shape[0], SEARCH_CHECK, replace=False))
+    with _plain_search():
+        want = map_to_reference(reads[pick], genome)
+    _check_fields(name, hits, want, pick, ("ref_id", "pos", "score", "strand", "mapq"))
+    _check_alignments(name, [hits.alignments[i] for i in pick], want.alignments)
+    log(f"[path] {name}: {REFMAP_READS} reads vs {GENOME_LEN} bp ({len(data['windows'])} "
+        f"windows): every read at its planted start and strand; {SEARCH_CHECK} == plain reference")
+
+    profiles, pool, planted = data["profile_search"]
+    name = "profile_search"
+    params = _profile_params()
+
+    def search(p):
+        return profile_search(profiles, p, params, k=10, hits=True, alignments=True)
+
+    hits, out[name] = _run_path(name, lambda: search(pool), None)
+    for k, found in enumerate(hits):
+        if not set(planted[k]) <= {h.index for h in found}:
+            raise AssertionError(f"{name}: profile {k} misses a planted instance")
+    got = search(pool[:POOL_SLICE])
+    with _plain_search():
+        want = search(pool[:POOL_SLICE])
+    if got != want:
+        raise AssertionError(f"{name}: hits on the {POOL_SLICE}-entry slice differ "
+                             "from the plain reference")
+    log(f"[path] {name}: {PROFILES} profiles x {PROFILE_LEN} vs {POOL} x {POOL_LEN}: every "
+        f"planted instance in its top 10; all hits on {POOL_SLICE} entries == plain reference")
+
+    reads, proteins, src, rev = data["translated_search"]
+    name = "translated_search"
+    hits, out[name] = _run_path(name, lambda: translated_search(reads, proteins, alignments=True),
+                                "align_affine")
+    if not ((hits.index == src).all() and ((hits.frame < 0) == rev).all()):
+        raise AssertionError(f"{name}: {(hits.index != src).sum()} reads off their protein, "
+                             f"{((hits.frame < 0) != rev).sum()} off their strand")
+    rows = np.arange(SEARCH_CHECK)
+    with _plain_search():
+        want = translated_search(reads[rows], proteins, alignments=True)
+    _check_fields(name, hits, want, rows, ("index", "frame", "score", "scores", "dna_start",
+                                           "dna_end", "strand"))
+    if hits.dna_cigar[:SEARCH_CHECK] != want.dna_cigar \
+            or hits.proteins[:SEARCH_CHECK] != want.proteins:
+        raise AssertionError(f"{name}: CIGARs or translations differ from the plain reference")
+    _check_alignments(name, hits.alignments[:SEARCH_CHECK], want.alignments)
+    log(f"[path] {name}: {TRANSLATED_READS} reads vs {PROTEINS} x {POOL_LEN}: every read on "
+        f"its protein and strand; {SEARCH_CHECK} == plain reference")
+    return out
+
+
+def _search_call(kind, q, p, params, alg):
+    from versalignlib_tpu_torch.ops import cuda_search, plain
+
+    if kind == "profile":
+        return (lambda: cuda_search.pssm_scores_device(q, p, params, alg, with_coords=True),
+                lambda: plain.profile_scores(q, p, params, alg, with_coords=True))
+    return (lambda: cuda_search.cross_scores_device(q, p, params, alg),
+            lambda: plain.cross_scores(q, p, params, alg))
+
+
+def phase_search_times(dev, data, paths: dict, errs: dict) -> list[dict]:
+    """The one-vs-many kernel at each path's launch shape (SW; NW too where
+    the launch is a cross product), its plain version at the slice shape,
+    and the bound."""
+    from versalignlib_tpu_torch.types import Algorithm
+
+    entries = []
+    for name, (params, queries, pool, kind) in search_launches(data).items():
+        q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+        p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
+        q_pl, p_pl = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in _plain_slice(kind, name, queries, pool))
+        if kind == "profile":
+            k, m, s = q.shape
+            r, n = p.shape
+            nbytes = 4 * k * m * s + r * n + 12 * k * r
+            plain_cells = q_pl.shape[0] * q_pl.shape[1] * p_pl.shape[0] * n
+        else:
+            (k, m), (r, n) = q.shape, p.shape
+            s = params.sub_size
+            lq = m if r >= k else n
+            nbytes = k * m + r * n + 4 * min(k, r) * lq * s + 4 * k * r
+            plain_cells = q_pl.shape[0] * m * p_pl.shape[0] * n
+        cells = k * r * m * n
+        gap = "affine" if params.affine else "linear"
+        t = {}
+        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+            if kind == "profile" and key == "nw":
+                continue
+            kernel = _search_call(kind, q, p, params, alg)[0]
+            plain_fn = _search_call(kind, q_pl, p_pl, params, alg)[1]
+            km = time_cuda(kernel)
+            pm = time_cuda(plain_fn, reps=PLAIN_REPS)
+            sw_ops, nw_ops = OPS_PER_CELL["search", gap]
+            ops = (sw_ops + (SEARCH_COORDS_OPS if kind == "profile" else 0)
+                   if key == "sw" else nw_ops)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops * cells / INT32_OPS_PER_S
+            bd = 1e3 * max(t_bytes, t_ops)
+            t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
+                      "gcups": cells / km["median"] / 1e6, "plain_ms": pm["median"],
+                      "bound_ms": bd, "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            log(f"[times] search.cu {name} {key} {k}x{m} vs {r}x{n}: {km['median']:.3f} ms "
+                f"(min {km['min']:.3f}, max {km['max']:.3f}), {t[key]['gcups']:.1f} GCUPS; "
+                f"plain {pm['median']:.1f} ms on {plain_cells:.3g} cells; bound {bd:.3f} ms "
+                f"({t[key]['bound_by']})")
+        sw = t["sw"]
+        entry = {
+            "name": f"search[{name}]", "route": "cuda",
+            "source": "versalignlib_tpu_torch/csrc/search.cu",
+            "replaces": "versalignlib_tpu/ops/pallas_search.py:45",
+            "launches": paths[name]["launches"]["search"], "max_abs_err": errs[name],
+            "tolerance": 0, "ms": sw["ms"], "plain_ms": sw["plain_ms"],
+            "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"], "library_ms": None,
+            "params": name, "launch_shape": [k, r, m, n], "algorithm": "SW",
+            "coords": kind == "profile", "ms_min": sw["ms_min"], "ms_max": sw["ms_max"],
+            "gcups": sw["gcups"], "plain_cells": plain_cells,
+            "path_split_ms": paths[name]["split"], "matches_plain": True,
+        }
+        if "nw" in t:
+            entry["nw"] = t["nw"]
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -536,7 +1092,19 @@ def main() -> int:
     log(f"[phase] main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_times(rng, dev, main_path, errs)
-    log(f"[phase] times: {time.perf_counter() - t0:.1f} s; whole script "
+    log(f"[phase] times: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data = make_search_data(rng)
+    log(f"[phase] search data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    search_errs = phase_search_kernels_vs_plain(rng, dev, data)
+    log(f"[phase] search kernel vs plain: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = phase_search_paths(rng, data)
+    log(f"[phase] search paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_search_times(dev, data, paths, search_errs)
+    log(f"[phase] search times: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

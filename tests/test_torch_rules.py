@@ -50,6 +50,8 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['versalignlib_tpu'] = None\n"
         "import versalignlib_tpu_torch, versalignlib_tpu_torch.dispatch\n"
         "from versalignlib_tpu_torch.ops import cuda_backend, cuda_align, cuda_score, plain\n"
+        "from versalignlib_tpu_torch.ops import cuda_search, gotoh, oracle, pssm\n"
+        "from versalignlib_tpu_torch import refmap, search, stats, translate\n"
         "from versalignlib_tpu_torch.utils import capabilities, logging\n"
         "from versalignlib_tpu_torch import native\n"
         "import chip_smoke\n"
@@ -154,3 +156,71 @@ def test_registry():
     assert dispatch.get_backend("auto", "cpu").name == "cuda"
     with pytest.raises(KeyError):
         dispatch.get_backend("pallas", "cpu")
+
+
+def _search_entry_points(device):
+    """Each search entry point of the port, called on ``device`` with tiny
+    inputs."""
+    from versalignlib_tpu_torch import (calibrate, map_read_pairs, map_reads,
+                                        map_to_reference, profile_search, score_matrix,
+                                        translated_search)
+    from versalignlib_tpu_torch.ops.pssm import calibrate_profile
+    from versalignlib_tpu_torch.search import best_hits
+
+    reads = np.ones((3, 5), np.uint8)
+    panel = np.ones((4, 6), np.uint8)
+    table = np.zeros((3, 6), np.int32)
+    table[:, 1] = 2
+    return {
+        "score_matrix": lambda: score_matrix(reads, panel, device=device),
+        "best_hits": lambda: best_hits(reads, panel, device=device),
+        "map_reads": lambda: map_reads(reads, panel, device=device),
+        "map_read_pairs": lambda: map_read_pairs(reads, reads, panel, device=device),
+        "map_to_reference": lambda: map_to_reference(reads, [np.ones(40, np.uint8)],
+                                                     device=device),
+        "profile_search": lambda: profile_search(table, panel, device=device),
+        "calibrate_profile": lambda: calibrate_profile(table, samples=8, n=6, device=device),
+        "translated_search": lambda: translated_search(["ACGTTTGCA"], ["MKV"], device=device),
+        "calibrate": lambda: calibrate(DEFAULT_PARAMETERS, m=6, n=6, samples=8, device=device),
+    }
+
+
+def test_search_entry_points_need_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in _search_entry_points("cuda").items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for name, call in _search_entry_points("cpu").items():
+        call()
+
+
+def test_search_kernel_launches_or_raises_never_the_plain_version(monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain versions: on
+    the card the kernel launches; elsewhere (no card, or another device) the
+    call raises."""
+    from versalignlib_tpu_torch.ops import cuda_search
+
+    calls = []
+    for name in ("cross_scores", "profile_scores"):
+        monkeypatch.setattr(plain, name, lambda *a: calls.append(a))
+    reads = torch.ones((3, 5), dtype=torch.uint8)
+    refs = torch.ones((4, 6), dtype=torch.uint8)
+    table = torch.zeros((2, 3, 6), dtype=torch.int32)
+    sw = Algorithm.SMITH_WATERMAN
+    if torch.cuda.is_available():
+        before = cuda_search.SEARCH_KERNEL.launches
+        cuda_search.cross_scores_device(reads.cuda(), refs.cuda(), DEFAULT_PARAMETERS, sw)
+        cuda_search.pssm_scores_device(table.cuda(), refs.cuda(), DEFAULT_PARAMETERS, sw, True)
+        assert cuda_search.SEARCH_KERNEL.launches == before + 2
+    else:
+        meta = torch.device("meta")
+        with pytest.raises(ValueError, match="device"):
+            cuda_search.cross_scores_device(reads.to(meta), refs.to(meta), DEFAULT_PARAMETERS, sw)
+        with pytest.raises(ValueError, match="device"):
+            cuda_search.pssm_scores_device(table.to(meta), refs.to(meta), DEFAULT_PARAMETERS, sw)
+        # Past the device gate, the entry points reach the card or raise.
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        for name, call in _search_entry_points("cuda").items():
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+    assert calls == []

@@ -87,3 +87,113 @@ def test_make_validity_matches(matrix):
     codes = np.arange(-1, 30, dtype=np.int32)
     np.testing.assert_array_equal(alphabet.make_validity(m)(codes),
                                   jax_alphabet.make_validity(m)(codes))
+
+
+def test_reverse_complement_and_decode_match():
+    rng = np.random.default_rng(20)
+    codes = rng.integers(0, 6, size=(7, 15)).astype(np.uint8)
+    codes[2, 9:] = 0
+    codes[4] = 0
+    np.testing.assert_array_equal(alphabet.reverse_complement_codes(codes),
+                                  jax_alphabet.reverse_complement_codes(codes))
+    np.testing.assert_array_equal(alphabet.reverse_complement_codes(codes[2]),
+                                  jax_alphabet.reverse_complement_codes(codes[2]))
+    with pytest.raises(ValueError, match="DNA"):
+        alphabet.reverse_complement_codes(np.array([1, 6], np.uint8))
+    for seq in ("ACGTNacgtn-xy", ""):
+        assert alphabet.reverse_complement(seq) == jax_alphabet.reverse_complement(seq)
+    for row in codes:
+        assert alphabet.decode(row) == jax_alphabet.decode(row)
+    assert alphabet.decode(np.array([1, 9, 3, 0, 0], np.uint8)) == \
+        jax_alphabet.decode(np.array([1, 9, 3, 0, 0], np.uint8))
+    a, b = rng.integers(0, 30, size=(2, 40))
+    for matrix in (None, jax_alphabet.blosum62()):
+        np.testing.assert_array_equal(
+            alphabet.substitution_scores(a, b, 3, -2, matrix),
+            jax_alphabet.substitution_scores(a, b, 3, -2, matrix))
+
+
+@pytest.mark.parametrize("lo,hi,s", [(-4, 11, 6), (-60, 100, 25), (0, 3, 9)])
+def test_pack_pssm_and_sub_plane_match(lo, hi, s):
+    from versalignlib_tpu.ops import pssm as jax_pssm
+    from versalignlib_tpu_torch.ops import pssm
+
+    rng = np.random.default_rng(21)
+    P = rng.integers(lo, hi + 1, size=(5, s)).astype(np.int32)
+    P[:, 0] = 0
+    words, meta = pssm.pack_pssm(P)
+    j_words, j_meta = jax_pssm.pack_pssm(P)
+    np.testing.assert_array_equal(words, j_words)
+    assert tuple(meta) == tuple(j_meta)
+    Q = P.copy()
+    Q[:, 1:] = -Q[:, 1:]
+    words, meta = pssm.pack_pssms([P, Q])
+    j_words, j_meta = jax_pssm.pack_pssms([P, Q])
+    np.testing.assert_array_equal(words, j_words)
+    assert tuple(meta) == tuple(j_meta)
+    ref = rng.integers(0, s + 5, size=17)
+    np.testing.assert_array_equal(pssm.profile_sub_plane(P, ref),
+                                  jax_pssm.profile_sub_plane(P, ref))
+    for bad in (np.zeros(4, np.int32), np.ones((3, 6), np.int32)):
+        with pytest.raises(ValueError):
+            pssm.validate_pssm(bad)
+        with pytest.raises(ValueError):
+            jax_pssm.validate_pssm(bad)
+    with pytest.raises(ValueError, match="span"):
+        pssm.pack_pssm(np.array([[0, -300, 300]]))
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["linear", "affine"])
+def test_copied_oracle_fills_and_walks_match(affine):
+    """The host fills, pointers and walks that the profile traceback uses,
+    with and without a substitution plane, SW and the NW traceback variant,
+    both tie flavors."""
+    from versalignlib_tpu.ops import gotoh as jax_gotoh
+    from versalignlib_tpu.ops import oracle as jax_oracle
+    from versalignlib_tpu_torch.ops import gotoh, oracle
+
+    rng = np.random.default_rng(22)
+    p = _SETS["affine" if affine else "custom_linear"]
+    ours = params.params_from_reference(dataclasses.asdict(p))
+    read = rng.integers(0, 6, size=13)
+    ref = rng.integers(0, 6, size=17)
+    plane = rng.integers(-5, 6, size=(13, 17)).astype(np.int32)
+    for local in (True, False):
+        for sub in (None, plane):
+            kw = dict(local=local, col0_penalty=not local, sub=sub)
+            if affine:
+                got = gotoh._fill_affine(read, ref, ours, **kw)
+                want = jax_gotoh._fill_affine(read, ref, p, **kw)
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+            else:
+                np.testing.assert_array_equal(oracle._fill_matrix(read, ref, ours, **kw),
+                                              jax_oracle._fill_matrix(read, ref, p, **kw))
+    sub = jax_alphabet.substitution_scores(read[:, None], ref[None, :], p.score_match,
+                                           p.score_mismatch, p.matrix)
+    valid = jax_alphabet.make_validity(None)
+    valid_comp = valid(read)[:, None] & valid(ref)[None, :]
+    for local in (True, False):
+        for tie in types.TieBreak:
+            jtie = jax_types.TieBreak(int(tie))
+            if affine:
+                h, e, f = jax_gotoh._fill_affine(read, ref, p, local=local,
+                                                 col0_penalty=not local)
+                ptr = gotoh._affine_pointers(h, e, f, sub, ours, local=local, tie=tie,
+                                             valid_comp=valid_comp)
+                want = jax_gotoh._affine_pointers(h, e, f, sub, p, local=local, tie=jtie,
+                                                  valid_comp=valid_comp)
+                np.testing.assert_array_equal(ptr, want)
+                args = (read, ref, ptr, 12, 15, int(h[13, 16]))
+                got = gotoh._affine_traceback(*args, nw_boundary=not local)
+                want = jax_gotoh._affine_traceback(*args, nw_boundary=not local)
+            else:
+                h = jax_oracle._fill_matrix(read, ref, p, local=local, col0_penalty=not local)
+                ptr = oracle._pointers(h, sub, valid_comp, ours, local=local, tie=tie)
+                want = jax_oracle._pointers(h, sub, valid_comp, p, local=local, tie=jtie)
+                np.testing.assert_array_equal(ptr, want)
+                args = (read, ref, ptr, 12, 15, int(h[13, 16]))
+                got = oracle._traceback(*args)
+                want = jax_oracle._traceback(*args)
+            assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    assert oracle._text_from_codes(read) == jax_oracle._text_from_codes(read)

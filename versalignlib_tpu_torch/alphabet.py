@@ -1,7 +1,9 @@
 """Sequence encoding: ASCII bases -> small integer codes.
 
-The port's copy of what the alignment path needs from
-``versalignlib_tpu/alphabet.py``, protein encoding and BLOSUM62 included. It replicates the reference's 256-entry
+The port's copy of what the alignment and search paths need from
+``versalignlib_tpu/alphabet.py``: encoding and decoding, substitution
+scores, the padding-aware reverse complement, protein encoding and
+BLOSUM62. It replicates the reference's 256-entry
 ``char_to_score`` table (DefaultKernel.h:43-60): case-insensitive A->1, T->2,
 C->3, G->4, N->5, everything else (including the ``'\\0'`` batch padding)
 -> 0. Codes 0 and 5 score zero against everything (DefaultKernel.h:83-96),
@@ -26,12 +28,21 @@ for _ch, _code in (("A", 1), ("T", 2), ("C", 3), ("G", 4), ("N", 5)):
     _CHAR_TO_CODE[ord(_ch)] = _code
     _CHAR_TO_CODE[ord(_ch.lower())] = _code
 
+_CODE_TO_CHAR = np.frombuffer(b"\0ATCGN", dtype=np.uint8).copy()
+
 
 def encode(seq: str | bytes) -> np.ndarray:
     """Encode one sequence to a uint8 code array."""
     if isinstance(seq, str):
         seq = seq.encode("ascii", errors="replace")
     return _CHAR_TO_CODE[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def decode(codes: np.ndarray) -> str:
+    """Decode a code array back to characters (padding -> '\\0' stripped)."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    chars = _CODE_TO_CHAR[np.clip(codes, 0, NUM_CODES - 1)]
+    return chars.tobytes().rstrip(b"\0").decode("ascii")
 
 
 def pad_and_encode(
@@ -61,6 +72,68 @@ def base_score_matrix(score_match: int, score_mismatch: int) -> np.ndarray:
     m[N_CODE, :] = 0
     m[:, N_CODE] = 0
     return m
+
+
+def is_valid_base(codes):
+    """True for A/T/C/G codes (1..4); False for padding (0) and N (5)."""
+    return (codes >= 1) & (codes <= 4)
+
+
+def substitution_scores(read_codes, ref_codes, score_match: int,
+                        score_mismatch: int, matrix=None):
+    """Substitution score of numpy code arrays, broadcasting: the default
+    DNA table as arithmetic, or ``matrix[read][ref]`` with codes outside
+    [0, S) read as code 0 (score 0)."""
+    a = read_codes.astype(np.int32) if hasattr(read_codes, "astype") else read_codes
+    b = ref_codes.astype(np.int32) if hasattr(ref_codes, "astype") else ref_codes
+    if matrix is not None:
+        m = np.asarray(matrix, dtype=np.int32)
+        s = m.shape[0]
+        return m[np.where((a >= 0) & (a < s), a, 0), np.where((b >= 0) & (b < s), b, 0)]
+    valid = is_valid_base(a) & is_valid_base(b)
+    sub = np.where(a == b, np.int32(score_match), np.int32(score_mismatch))
+    return np.where(valid, sub, np.int32(0))
+
+
+#: Complement permutation over the DNA codes: A(1)<->T(2), C(3)<->G(4);
+#: padding (0) and N (5) map to themselves.
+_COMPLEMENT = np.array([0, 2, 1, 4, 3, 5], dtype=np.uint8)
+
+_COMPLEMENT_CHARS = np.arange(256, dtype=np.uint8)
+for _a, _b in (("A", "T"), ("C", "G")):
+    _COMPLEMENT_CHARS[ord(_a)] = ord(_b)
+    _COMPLEMENT_CHARS[ord(_b)] = ord(_a)
+    _COMPLEMENT_CHARS[ord(_a.lower())] = ord(_b.lower())
+    _COMPLEMENT_CHARS[ord(_b.lower())] = ord(_a.lower())
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement of a DNA string (case preserved; N and unknown
+    characters map to themselves)."""
+    raw = np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
+    return _COMPLEMENT_CHARS[raw][::-1].tobytes().decode("latin-1")
+
+
+def reverse_complement_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of encoded DNA, padding-aware.
+
+    ``codes`` is (L,) or (B, L) uint8 with trailing 0-padding; each row's
+    valid prefix is complemented and reversed in place, so the padding stays
+    at the end. Codes > 5 are rejected: complementation is a DNA notion.
+    """
+    codes = np.asarray(codes, dtype=np.uint8)
+    if codes.max(initial=0) > 5:
+        raise ValueError("reverse_complement_codes is defined for the DNA "
+                         "code table (codes 0..5) only")
+    single = codes.ndim == 1
+    arr = codes[None, :] if single else codes
+    out = np.zeros_like(arr)
+    comp = _COMPLEMENT[arr]
+    lengths = np.where((arr != 0).any(axis=1),
+                       arr.shape[1] - np.argmax((arr != 0)[:, ::-1], axis=1), 0)
+    for i, length in enumerate(lengths):
+        out[i, :length] = comp[i, :length][::-1]
+    return out[0] if single else out
 
 
 def valid_code_mask(matrix=None) -> np.ndarray:

@@ -1,9 +1,10 @@
 // Pieces shared by the kernels of this directory (score.cu, align.cu,
-// align_affine.cu): the launch shape, where an S x S matrix lives and how a
-// cell looks it up, the walk over read rows in sweeps, the walk over
-// columns in pointer words and the store of those words, the SW argmax fold
-// and the aux word, and the host-side choice of template instantiation.
-// Each source keeps only its recurrence and its per-row state.
+// align_affine.cu, search.cu): the launch shape, where an S x S matrix lives
+// and how a cell looks it up, the walk over read rows in sweeps, the walk
+// over columns in pointer words and the store of those words, the SW argmax
+// fold and the aux word, and the host-side choice of template
+// instantiation. Each source keeps only its recurrence and its per-row
+// state.
 
 #pragma once
 

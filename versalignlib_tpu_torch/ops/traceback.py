@@ -10,13 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from versalignlib_tpu_torch.ops.oracle import _text_from_codes
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, Trace, cigar_from_gapped
-
-
-def _text_from_codes(codes: np.ndarray) -> str:
-    table = "\0ATCGN"
-    return "".join(table[int(c)] if 0 <= int(c) <= 5 else "\0" for c in codes)
 
 
 def _sub_score(a: int, b: int, params: AlignmentParameters) -> int:

@@ -2,8 +2,9 @@
 
 The counterpart of ``versalignlib_tpu/utils/capabilities.py``: the analogue
 of the reference's CPUID gate on the AVX backend (versalignUtil.cpp:78-181).
-The fit test delegates to the kernels' own memory plans, as the JAX gate
-delegates to its kernels' VMEM plans.
+The fit tests delegate to the kernels' own memory plans, as the JAX gates
+delegate to their kernels' VMEM plans; the one-vs-many gate
+(:func:`check_search_budget`) holds a launch's plan to the free memory.
 """
 
 from __future__ import annotations
@@ -35,6 +36,34 @@ class DeviceCapabilities:
         from versalignlib_tpu_torch.ops.cuda_align import align_mem_plan
 
         return align_mem_plan(m, n, 32, affine) <= self.memory_bytes
+
+
+def free_device_bytes(device: torch.device) -> int:
+    """Bytes a new allocation on ``device`` can take: what CUDA
+    reports free plus what PyTorch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def check_search_budget(m: int, n: int, pairs: int, affine: bool,
+                        device: torch.device) -> None:
+    """Refuse a one-vs-many launch of ``pairs`` pairs of m x n whose
+    ``search_mem_plan`` exceeds the free memory of ``device``, with
+    guidance, instead of running out of memory (the counterpart of
+    ``search._check_dense_budget``). Nothing to check off the card."""
+    if device.type != "cuda":
+        return
+    from versalignlib_tpu_torch.ops.cuda_search import search_mem_plan
+
+    need = search_mem_plan(n, pairs, affine)
+    free = free_device_bytes(device)
+    if need > free:
+        raise ValueError(
+            f"dense search kernel needs {need / 2**20:.0f}MB of device memory "
+            f"for {pairs} {m}x{n} sequence pairs; {device} has "
+            f"{free / 2**20:.0f}MB free. Long pairs belong on the banded path "
+            "(models.banded_smith_waterman / --band); for reference mapping "
+            "use a smaller --window; or lower max_pairs.")
 
 
 def _power_limit(index: int) -> str | None:
