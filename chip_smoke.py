@@ -9,8 +9,8 @@ protein scoring with BLASTP's affine gaps or with linear gaps. The search
 paths run the one-vs-many kernel (``csrc/search.cu``) through
 ``map_reads`` (under the first two sets), ``map_to_reference``,
 ``profile_search`` and ``translated_search`` at real sizes (``SEARCH_*``
-below), each checked on a subset against the same entry point with the
-kernel's wrapper swapped for its plain version on the card.
+below), each checked on a subset against the same entry point with every
+kernel's launch swapped for its plain version on the card.
 
 Phases (any failure exits non-zero before a result is printed):
 
@@ -38,14 +38,19 @@ Phases (any failure exits non-zero before a result is printed):
    ``==``: at each search path's launch shape, on a slice of its queries at
    the full pool size; at odd shapes (m, n not multiples of 16) in both
    orientations with codes past S; and with profiles of 100 KB (shared
-   memory past the 48 KB default) and 250 KB (read-only cache);
+   memory past the 48 KB default) and 250 KB (read-only cache). Then the
+   fill kernel of each aligning search path against its plain version at
+   that path's own align shape (2048 x 150 x 1536, 256 x 150 x 640, 1024 x
+   50 x 512), on the pairs its planted reads win;
 6. the search paths, each with the launch counts set to 0 just before its
    run and read just after (the one-vs-many kernel must have launched, and
    the fill kernel of its parameters where the path aligns on the card),
    its wall time split into the one-vs-many kernel (CUDA events), the align
    path (host clock) and the rest, 64 reads (profiles: all 8 on a 4096-entry
-   slice) checked field by field against the plain reference, and the
-   planted reads, entries and instances found where they were planted;
+   slice) checked field by field against the plain reference (the same
+   entry point with the one-vs-many wrappers and the fill launch swapped
+   for their plain versions, on the card), and the planted reads, entries
+   and instances found where they were planted;
 7. times of the one-vs-many kernel at each path's launch shape (median of
    7, min, max, GCUPS), its plain version's at the slice shape, the bound;
 8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
@@ -72,32 +77,49 @@ import numpy as np
 import torch
 
 #: H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (NVIDIA data
-#: sheet), and int32 on the CUDA cores: 64 INT32 lanes per SM (Hopper
-#: architecture white paper) x 132 SMs x 1.98 GHz boost = 16.7 Tops/s.
+#: sheet), and int32 operations at 2 x 128 lanes per SM per clock x 132 SMs x
+#: 1.98 GHz boost = 66.9 Tops/s. An SM issues at most four warp instructions
+#: (128 lanes) per clock, shared by its integer pipe and the FMA pipe that
+#: runs IMAD, and the integer instructions the kernels compile to do at most
+#: two of the counted operations each (VIADDMNMX an add and a max, VIMNMX3
+#: two maxes, IADD3 two adds; scripts/torch_sass_mix.py). The 64 INT32 lanes
+#: per SM of the white paper, one operation each, are no ceiling: the
+#: profile search launch ran faster than that bound.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT32_OPS_PER_S = 2 * 128 * 132 * 1.98e9
 
-#: int32 operations per DP cell, (SW, NW), counted from the recurrence each
-#: branch computes, not from the instructions a kernel happens to issue.
-#: Linear gaps, DNA: score 8 / 7 and fill 16 / 15 (the move priority, its
-#: packing and the cleared value on top of the score's cell), the counts
-#: the first bounds used. Each other branch adds only what its recurrence
-#: adds:
-#: - matrix: substitution is an add and a lookup, as the DNA compare and
-#:   select are two, so a matrix branch counts as its DNA branch;
-#: - affine: F = max(up + open, F_up) + gap and E alike are three
-#:   operations each where a linear gap arm is one add (+4), and in the
-#:   fills each extend bit is a compare, a select and an or (+6).
-#: The one-vs-many kernel computes the score recurrence, so it counts as the
-#: score branch of its gap model, matrix and PSSM alike; its coordinates
-#: add SEARCH_COORDS_OPS (a compare and a column select; the max is already
-#: counted).
-OPS_PER_CELL = {
-    ("score", "linear"): (8, 7), ("score", "affine"): (12, 11),
-    ("align", "linear"): (16, 15), ("align", "affine"): (26, 25),
-    ("search", "linear"): (8, 7), ("search", "affine"): (12, 11),
-}
+#: int32 operations per DP cell, (SW, NW). score.cu and search.cu share one
+#: cell loop (csrc/common.cuh, score_sweep), counted from its code: the
+#: substitution, then the recurrence.
+#: - recurrence, linear gaps: diag + s, two gap adds and two maxes (5); SW
+#:   adds its zero clamp and its running best (7 / 5). Affine gaps make each
+#:   gap arm an add, a max and an add where a linear arm is one add (+4:
+#:   11 / 9);
+#: - substitution: an index add for an S x S matrix or a query profile (the
+#:   lookup is a load, not an operation), so 1; a compare, a select and a
+#:   mask for the default DNA table, so 3. The one-vs-many kernel reads every
+#:   scoring as a query profile;
+#: - coordinates (search.cu, SW): the running best becomes a compare, a max
+#:   and a column select (+SEARCH_COORDS_OPS).
+#: The fills count from their recurrence (not yet from their cell
+#: loops): linear 16 / 15 (the move priority, its packing and the cleared
+#: value on top of the score's cell), affine 26 / 25 (each extend bit a
+#: compare, a select and an or).
+RECURRENCE_OPS = {"linear": (7, 5), "affine": (11, 9)}
+SUBSTITUTION_OPS = {"dna": 3, "matrix": 1, "profile": 1}
+FILL_OPS = {"linear": (16, 15), "affine": (26, 25)}
 SEARCH_COORDS_OPS = 2
+
+
+def ops_per_cell(kind: str, gap: str, scoring: str) -> tuple[int, int]:
+    """(SW, NW) int32 operations per cell of ``kind`` ("score", "search" or
+    "align") under ``gap`` ("linear", "affine") and ``scoring`` ("dna",
+    "matrix", "profile")."""
+    if kind == "align":
+        return FILL_OPS[gap]
+    sub = SUBSTITUTION_OPS["profile" if kind == "search" else scoring]
+    sw, nw = RECURRENCE_OPS[gap]
+    return sub + sw, sub + nw
 
 REPS = 7
 PLAIN_REPS = 3
@@ -254,7 +276,7 @@ def branch_of(params) -> tuple[str, str]:
 def bound(kind: str, params, alg: str, b: int, m: int, n: int,
           nbytes: int) -> tuple[float, str]:
     """Least time in ms for the work, and which of bytes or operations sets it."""
-    sw, nw = OPS_PER_CELL[kind, branch_of(params)[0]]
+    sw, nw = ops_per_cell(kind, *branch_of(params))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (sw if alg == "sw" else nw) * b * m * n / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
@@ -279,6 +301,34 @@ def _plain_fill(params):
     return plain.align_affine_batch if params.affine else plain.align_batch
 
 
+def _fill_source(params) -> str:
+    return "align_affine.cu" if params.affine else "align.cu"
+
+
+def check_fill(label: str, r_np: np.ndarray, f_np: np.ndarray, params, dev) -> int:
+    """``cuda_align.fill`` against its plain version on the card, on (B, m)
+    and (B, n) codes, SW and NW under both tie-break flavors, every output
+    (ptr, aux, hsel) with ``==``; returns the max abs error (0)."""
+    from versalignlib_tpu_torch.ops import cuda_align
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+    f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+    plain_fill = _plain_fill(params)
+    err = 0
+    for tie in TieBreak:
+        mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+        for alg in Algorithm:
+            got = cuda_align.fill(r, f, mrp, params, alg, tie)
+            want = plain_fill(r, f, mrp, params, alg, tie)
+            for part, g, w in zip(("ptr", "aux", "hsel"), got, want):
+                if (g is None) != (w is None):
+                    raise AssertionError(f"{label} {part}: one side is None")
+                if g is not None:
+                    err = max(err, check_equal(f"{label} {part} {alg.name} {tie.name}", g, w))
+    return err
+
+
 def _kernel_name(kind: str, params) -> str:
     return f"{kind}[{','.join(branch_of(params))}]"
 
@@ -296,10 +346,10 @@ def _random_matrix(rng, s: int) -> tuple:
 def phase_kernels_vs_plain(rng, dev) -> dict:
     """Each branch against its plain version; returns the max abs error per
     kernel name (0)."""
-    from versalignlib_tpu_torch.ops import cuda_align, plain
+    from versalignlib_tpu_torch.ops import plain
     from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
     from versalignlib_tpu_torch.params import AlignmentParameters
-    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+    from versalignlib_tpu_torch.types import Algorithm
 
     err: dict[str, int] = {}
 
@@ -314,28 +364,14 @@ def phase_kernels_vs_plain(rng, dev) -> dict:
                 err[key] = max(err.get(key, 0), check_equal(
                     f"{key} {name} {alg.name} {b}x{m}x{n}", got, want))
             log(f"[kernels] score.cu == plain  {name:24s} SW, NW  B={b} {m}x{n}")
-        plain_fill = _plain_fill(params)
         key = _kernel_name("align", params)
         for b, m, n in fill_shapes:
             r_np = make(rng, b, m)
-            r = torch.from_numpy(r_np).to(dev)
-            f = torch.from_numpy(make(rng, b, n)).to(dev)
-            for tie in TieBreak:
-                mrp = torch.from_numpy(
-                    cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
-                for alg in Algorithm:
-                    got = cuda_align.fill(r, f, mrp, params, alg, tie)
-                    want = plain_fill(r, f, mrp, params, alg, tie)
-                    for part, g, w in zip(("ptr", "aux", "hsel"), got, want):
-                        if (g is None) != (w is None):
-                            raise AssertionError(f"{key} {part}: one side is None")
-                        if g is not None:
-                            err[key] = max(err.get(key, 0), check_equal(
-                                f"{key} {part} {name} {alg.name} {tie.name} "
-                                f"{b}x{m}x{n}", g, w))
-            src = "align_affine.cu" if params.affine else "align.cu"
-            log(f"[kernels] {src} == plain  {name:24s} SW, NW x both flavors "
-                f"B={b} {m}x{n} (ptr, aux, hsel)")
+            f_np = make(rng, b, n)
+            err[key] = max(err.get(key, 0), check_fill(f"{key} {name} {b}x{m}x{n}",
+                                                       r_np, f_np, params, dev))
+            log(f"[kernels] {_fill_source(params)} == plain  {name:24s} SW, NW x both "
+                f"flavors B={b} {m}x{n} (ptr, aux, hsel)")
 
     L = LENGTH
     for name, params in _param_sets().items():
@@ -696,6 +732,35 @@ def search_launches(data) -> dict:
     }
 
 
+def search_align_pairs(data) -> dict:
+    """Each aligning search path's fill launch, at the shape its entry point
+    makes it, on the pairs its planted truth wins: name -> (params, reads,
+    refs). ``map_reads`` aligns each read, turned to its strand, against its
+    panel entry; ``map_to_reference`` each read against the window that
+    holds its start; ``translated_search`` one frame query per read against
+    its protein. (``profile_search`` walks its alignments on the host.)"""
+    from versalignlib_tpu_torch.alphabet import reverse_complement_codes
+    from versalignlib_tpu_torch.translate import TRANSLATED_PARAMETERS
+
+    sets = _param_sets()
+    reads, panel, src, rev = data["map_reads"]
+    oriented = np.where(rev[:, None], reverse_complement_codes(reads), reads)
+    rm_reads, _, pos, rm_rev = data["map_to_reference"]
+    rm_oriented = np.where(rm_rev[:, None], reverse_complement_codes(rm_reads), rm_reads)
+    windows = data["windows"]
+    stride = windows.shape[1] // 2
+    held = windows[np.minimum(pos // stride, len(windows) - 1)]
+    t_src = data["translated_search"][2]
+    frames = data["frames"][:TRANSLATED_READS]
+    proteins = data["translated_search"][1][np.repeat(t_src, 6)[:TRANSLATED_READS]]
+    return {
+        "map_reads,dna_default": (sets["dna_default"], oriented, panel[src]),
+        "map_reads,dna_affine_bwamem": (sets["dna_affine_bwamem"], oriented, panel[src]),
+        "map_to_reference": (sets["dna_default"], rm_oriented, held),
+        "translated_search": (TRANSLATED_PARAMETERS, frames, proteins),
+    }
+
+
 def _plain_slice(kind: str, name: str, queries, pool):
     """The slice of a launch that the plain version scores: PLAIN_QUERIES
     of its queries (the smaller side) against the whole pool."""
@@ -707,9 +772,10 @@ def _plain_slice(kind: str, name: str, queries, pool):
     return queries[:q], pool
 
 
-def phase_search_kernels_vs_plain(rng, dev, data) -> dict:
-    """Every branch of the one-vs-many kernel against its plain version;
-    returns the max abs error per search path (0)."""
+def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
+    """Every branch of the one-vs-many kernel against its plain version, and
+    each search path's fill launch against the fill's plain version; returns
+    the max abs error per search path (0) of each: (search, fill)."""
     from versalignlib_tpu_torch.ops import cuda_search, plain
     from versalignlib_tpu_torch.params import AlignmentParameters
     from versalignlib_tpu_torch.types import Algorithm
@@ -781,9 +847,19 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> dict:
         for params in (lin, aff):
             profile(odd, f"pssm {m_big * 25 * 4 // 1000} KB "
                     f"{'affine' if params.affine else 'linear'}", table, pool, params)
+    # Each aligning path's fill kernel at its own align shape.
+    fills = {}
+    for name, (params, r_np, f_np) in search_align_pairs(data).items():
+        (b, m), n = r_np.shape, f_np.shape[1]
+        fills[name] = {"source": f"versalignlib_tpu_torch/csrc/{_fill_source(params)}",
+                       "shape": [b, m, n],
+                       "max_abs_err": check_fill(f"{_fill_source(params)} {name}", r_np,
+                                                 f_np, params, dev)}
+        log(f"[search] {_fill_source(params)} == plain  {name:30s} SW, NW x both flavors "
+            f"B={b} {m}x{n} (ptr, aux, hsel): the path's align shape")
     torch.cuda.synchronize()
     big = err.pop(odd)
-    return {key: max(e, big) for key, e in err.items()}
+    return {key: max(e, big) for key, e in err.items()}, fills
 
 
 class _LaunchTimer:
@@ -839,17 +915,30 @@ def _host_timed(module, name: str, acc: list):
 
 @contextlib.contextmanager
 def _plain_search():
-    """The reference runs: the one-vs-many kernel's wrapper swapped for its
-    plain version, which then runs on the card."""
-    from versalignlib_tpu_torch.ops import cuda_search, plain
+    """The reference runs, plain throughout on the card: the one-vs-many
+    kernel's wrappers and the fill launch swapped for their plain versions.
+    Raises if a kernel launched all the same."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_search, plain
+    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
 
-    saved = cuda_search.cross_scores_device, cuda_search.pssm_scores_device
+    def plain_fill(reads, refs, mrp, params, algorithm, tie):
+        return _plain_fill(params)(reads, refs, mrp, params, algorithm, tie)
+
+    kernels = (SEARCH_KERNEL, ALIGN_KERNEL, AFFINE_KERNEL)
+    before = [k.launches for k in kernels]
+    saved = (cuda_search.cross_scores_device, cuda_search.pssm_scores_device,
+             cuda_align._launch_fill)
     cuda_search.cross_scores_device = plain.cross_scores
     cuda_search.pssm_scores_device = plain.profile_scores
+    cuda_align._launch_fill = plain_fill
     try:
         yield
     finally:
-        cuda_search.cross_scores_device, cuda_search.pssm_scores_device = saved
+        (cuda_search.cross_scores_device, cuda_search.pssm_scores_device,
+         cuda_align._launch_fill) = saved
+    if [k.launches for k in kernels] != before:
+        raise AssertionError("a kernel launched during a plain reference run")
 
 
 def _run_path(name: str, fn, fill: str | None):
@@ -997,7 +1086,7 @@ def _search_call(kind, q, p, params, alg):
             lambda: plain.cross_scores(q, p, params, alg))
 
 
-def phase_search_times(dev, data, paths: dict, errs: dict) -> list[dict]:
+def phase_search_times(dev, data, paths: dict, errs: dict, fills: dict) -> list[dict]:
     """The one-vs-many kernel at each path's launch shape (SW; NW too where
     the launch is a cross product), its plain version at the slice shape,
     and the bound."""
@@ -1030,7 +1119,7 @@ def phase_search_times(dev, data, paths: dict, errs: dict) -> list[dict]:
             plain_fn = _search_call(kind, q_pl, p_pl, params, alg)[1]
             km = time_cuda(kernel)
             pm = time_cuda(plain_fn, reps=PLAIN_REPS)
-            sw_ops, nw_ops = OPS_PER_CELL["search", gap]
+            sw_ops, nw_ops = ops_per_cell("search", gap, "profile")
             ops = (sw_ops + (SEARCH_COORDS_OPS if kind == "profile" else 0)
                    if key == "sw" else nw_ops)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops * cells / INT32_OPS_PER_S
@@ -1057,6 +1146,8 @@ def phase_search_times(dev, data, paths: dict, errs: dict) -> list[dict]:
         }
         if "nw" in t:
             entry["nw"] = t["nw"]
+        if name in fills:
+            entry["align_fill_vs_plain"] = fills[name]
         entries.append(entry)
     return entries
 
@@ -1097,13 +1188,13 @@ def main() -> int:
     data = make_search_data(rng)
     log(f"[phase] search data: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    search_errs = phase_search_kernels_vs_plain(rng, dev, data)
+    search_errs, fill_errs = phase_search_kernels_vs_plain(rng, dev, data)
     log(f"[phase] search kernel vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths = phase_search_paths(rng, data)
     log(f"[phase] search paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels += phase_search_times(dev, data, paths, search_errs)
+    kernels += phase_search_times(dev, data, paths, search_errs, fill_errs)
     log(f"[phase] search times: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,27 @@
 """Instruction mix of the port's compiled CUDA kernels.
 
-    python3 scripts/torch_sass_mix.py
+    python3 scripts/torch_sass_mix.py [--rows 16]
 
 Builds ``versalignlib_tpu_torch/csrc/*.cu`` (as the package does at first
 use), disassembles each library with ``cuobjdump -sass`` and prints, per
-kernel instantiation, one JSON line with its instruction count and the
-count of each opcode (modifiers dropped: ``IMNMX.S32`` counts as ``IMNMX``).
+kernel instantiation, one JSON line with its instruction count, the count of
+each opcode (modifiers dropped: ``IMNMX.S32`` counts as ``IMNMX``), and its
+hot loop: the longest loop with no loop inside it (a backward branch and
+its target), which in every kernel here is the column loop of a sweep of
+``--rows`` read rows (``common.cuh``, kRows): two columns per iteration in
+``score.cu`` and ``search.cu``, one pointer word (16 columns, 8 with affine
+gaps) in the fills. For that loop it gives the opcodes, the instructions
+per cell (loop instructions / rows / columns) and their split by the pipe
+that issues them, as the Nsight Compute profiling guide
+describes the pipes: ``fma`` takes IMAD and IMUL (and FP32), ``alu`` the
+other integer, logic and compare instructions, ``lsu`` loads and stores,
+``other`` the rest (branches, constant loads, conversions).
 Needs the CUDA toolkit; runs where the kernels are built.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import pathlib
@@ -22,31 +33,86 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from versalignlib_tpu_torch.ops import _build  # noqa: E402
+from versalignlib_tpu_torch.ops.plain import AFFINE_PACK, PACK  # noqa: E402
+
+#: DP columns per hot-loop iteration of each source: a pointer word in the
+#: fills, an even and an odd column in the shared score loop (common.cuh,
+#: score_sweep).
+COLUMNS = {"align.cu": PACK, "align_affine.cu": AFFINE_PACK, "score.cu": 2, "search.cu": 2}
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
-_INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+_INSN = re.compile(
+    r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)\s*([^;]*)")
+_TARGET = re.compile(r"0x([0-9a-f]+)")
+
+_FMA = {"IMAD", "IMUL", "IDP", "FFMA", "FADD", "FMUL"}
+_ALU = {"IADD3", "IADD", "VIADD", "IMNMX", "VIMNMX", "VIMNMX3", "VIADDMNMX", "ISETP",
+        "SEL", "LOP3", "PLOP3", "SHF", "SHL", "SHR", "LEA", "PRMT", "IABS", "MOV",
+        "FSEL", "FSETP", "FMNMX", "P2R", "R2P", "BMSK", "FLO", "POPC", "BREV"}
+_LSU = {"LD", "LDG", "LDS", "LDL", "ST", "STG", "STS", "STL", "ATOM", "ATOMS", "RED"}
+
+
+def pipe(opcode: str) -> str:
+    if opcode in _FMA:
+        return "fma"
+    if opcode in _ALU:
+        return "alu"
+    if opcode in _LSU:
+        return "lsu"
+    return "other"
+
+
+def hot_loop(insns: list[tuple[int, str, str]], rows: int, cols: int = 1) -> dict | None:
+    """The longest innermost loop of one function's (address, opcode,
+    operands) list, covering ``rows`` x ``cols`` cells per iteration, or
+    None where it has no loop."""
+    loops = []
+    for addr, op, operands in insns:
+        found = _TARGET.search(operands) if op == "BRA" else None
+        if found and int(found.group(1), 16) <= addr:
+            loops.append((int(found.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= a and b < hi and (a, b) != (lo, hi) for a, b in loops)]
+    if not inner:
+        return None
+    lo, hi = max(inner, key=lambda span: span[1] - span[0])
+    body = [op for addr, op, _ in insns if lo <= addr <= hi]
+    mix = collections.Counter(body)
+    pipes = collections.Counter(pipe(op) for op in body)
+    cells = rows * cols
+    return {"instructions": len(body), "cells": cells,
+            "per_cell": len(body) / cells,
+            "per_cell_by_pipe": {k: v / cells for k, v in pipes.most_common()},
+            "opcodes": dict(mix.most_common())}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=16,
+                    help="read rows per sweep (common.cuh kRows)")
+    args = ap.parse_args()
     cuobjdump = shutil.which("cuobjdump") or str(_build.DEFAULT_NVCC.with_name("cuobjdump"))
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     _build.build(sources)
     for source in sources:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(source))],
                               capture_output=True, text=True, check=True).stdout
-        func, mix = None, collections.Counter()
+        func, insns = None, []
         for line in sass.splitlines() + ["Function : <end>"]:
             m = _FUNC.match(line)
             if m:
                 if func is not None:
+                    mix = collections.Counter(op for _, op, _ in insns)
                     print(json.dumps({"source": source, "function": func,
-                                      "instructions": sum(mix.values()),
-                                      "opcodes": dict(mix.most_common())}))
-                func, mix = m.group(1), collections.Counter()
+                                      "instructions": len(insns),
+                                      "opcodes": dict(mix.most_common()),
+                                      "hot_loop": hot_loop(insns, args.rows,
+                                                           COLUMNS.get(source, 1))}))
+                func, insns = m.group(1), []
                 continue
             m = _INSN.match(line)
             if m and func is not None:
-                mix[m.group(1)] += 1
+                insns.append((int(m.group(1), 16), m.group(2), m.group(4)))
     return 0
 
 

@@ -39,7 +39,7 @@
 // through the read-only cache (kMat 2).
 //
 // What bounds it on an H100: integer operations (16 per SW cell in the
-// recurrence, chip_smoke.OPS_PER_CELL) well ahead of bytes (the pointer
+// recurrence, chip_smoke.FILL_OPS) well ahead of bytes (the pointer
 // words, 2 bits per cell, are the only output of size). The design is the
 // score kernel's, with the scaffolding of common.cuh: one thread per pair,
 // pair-interleaved (len, b) uint8 codes, kRows read rows advancing together

@@ -30,7 +30,7 @@
 //   codes are valid else 0), E | 2, F | 1), no zero-force, SW clamps with 0.
 //
 // What bounds it on an H100: integer operations (26 per SW cell and 25 per
-// NW cell in the recurrence, chip_smoke.OPS_PER_CELL) well ahead of bytes
+// NW cell in the recurrence, chip_smoke.FILL_OPS) well ahead of bytes
 // (the pointer words, 4 bits per cell, are the only output of size). The
 // design is align.cu's, with the scaffolding of common.cuh: one thread per
 // pair, pair-interleaved (len, b) uint8 codes, kRows read rows advancing

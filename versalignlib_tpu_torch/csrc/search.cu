@@ -28,8 +28,9 @@
 // on at most S consecutive words of one row, so shared memory serves them
 // without bank conflicts.
 //
-// What bounds it on an H100: integer operations, as score.cu (8 / 7 per
-// cell linear, 12 / 11 affine, +2 with coords; chip_smoke.OPS_PER_CELL).
+// What bounds it on an H100: integer operations, counted from the cell
+// loop (8 / 6 per SW / NW cell linear, 12 / 10 affine, +2 with coords;
+// chip_smoke.ops_per_cell).
 // What the design does about device memory, the reason this kernel exists
 // (pallas_search.py:3-16): no (K*R, m + n) cross product of pair codes is
 // ever made. The card holds the K + R sequences, the K query profiles, the
@@ -40,8 +41,10 @@
 //   (kTab 1, up to 227 KB with the opt-in), or read through the read-only
 //   cache when it is larger (kTab 2);
 // - pool codes arrive pair-interleaved, (len, R) uint8, as in score.cu;
-// - score.cu's 16-row sweep, each next column's loads started before the
-//   current column is computed.
+// - the sweep and the recurrence are common.cuh's val::score_pair, shared
+//   with score.cu: 16 read rows per sweep, each next column's loads started
+//   before the current column is computed. This source keeps how a cell
+//   finds its substitution score (ProfileSub).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,7 +54,6 @@
 namespace {
 
 using val::lookup;
-constexpr int kNegInf = -(1 << 30);  // pallas_score.NEG_INF_I32
 constexpr int kThreads = 128;        // pool sequences per block
 constexpr int kMaxGridY = 65535;
 // The most dynamic shared memory a block of sm_90 may opt in to.
@@ -71,96 +73,27 @@ struct SearchArgs {
   int gap_read, gap_ref, open_read, open_ref;
 };
 
-// One sweep of R read rows [i0, i0 + R) across all n columns for pool
-// sequence p of pair pp (pair stride np in the scratch rows).
-template <int R, bool kLocal, bool kAffine, bool kCoords, int kTab>
-__device__ __forceinline__ void sweep(const SearchArgs &a, const int32_t *prof,
-                                      int p, size_t pp, size_t np, int i0,
-                                      int32_t &best, val::FillResult &res) {
-  // roff + coff is the cell's index in the profile: with query_is_read the
-  // row gives the profile row (q = i) and the pool ref code the column;
-  // otherwise the pool read code gives the column and the query position
-  // (q = j) the row.
-  int roff[R], left[R], diag[R], e[R], rbest[R], rcol[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (a.query_is_read) {
-      roff[r] = (i0 + r) * a.s;
-    } else {
-      const int c = a.pool[(size_t)(i0 + r) * a.r + p];
-      roff[r] = c < a.s ? c : 0;
-    }
-    left[r] = 0;  // H[i0 + r + 1][0] = 0 on the score path
-    diag[r] = 0;
-    e[r] = kNegInf;
-    rbest[r] = 0;
-    rcol[r] = 0;
+// The query profile as the substitution of val::score_sweep: row + col is
+// the cell's index in the profile. With query_is_read a read row gives the
+// profile row (q = i) and the pool's ref code the column; otherwise the
+// pool's read code gives the column and the ref position the profile row
+// (q = j). `pool` points at the pool sequence's first code, stride r.
+template <int kTab>
+struct ProfileSub {
+  const uint8_t *pool;
+  const int32_t *prof;
+  int r, s, query_is_read;
+  using Row = int;
+  using Col = int;
+  __device__ int code(int i) const {
+    const int c = pool[(size_t)i * r];
+    return c < s ? c : 0;  // codes past S read as 0, whose column is 0
   }
-  const uint8_t *pcol = a.pool + p;
-  auto col_off = [&](int j) -> int {
-    if (a.query_is_read) {
-      const int c = pcol[(size_t)j * a.r];
-      return c < a.s ? c : 0;
-    }
-    return j * a.s;
-  };
-  // Column j + 1's offset and H (and F) value are loaded before column j is
-  // computed, so their latency overlaps the arithmetic.
-  int32_t *hcol = a.h + pp;
-  int32_t *fscol = kAffine ? a.f + pp : nullptr;
-  int coff_next = col_off(0);
-  int up_next = i0 == 0 ? 0 : hcol[0];  // row 0 is 0
-  int fup_next = kAffine ? (i0 == 0 ? kNegInf : fscol[0]) : 0;
-  for (int j = 0; j < a.n; ++j) {
-    const int coff = coff_next;
-    int up = up_next;
-    int f_up = fup_next;
-    if (j + 1 < a.n) {
-      coff_next = col_off(j + 1);
-      if (i0 != 0) {
-        up_next = hcol[(size_t)(j + 1) * np];
-        if (kAffine) fup_next = fscol[(size_t)(j + 1) * np];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int s = lookup<kTab>(prof, roff[r] + coff);
-      int cur;
-      if (kAffine) {
-        const int f_val = max(up + a.open_ref, f_up) + a.gap_ref;
-        const int e_val = max(left[r] + a.open_read, e[r]) + a.gap_read;
-        const int e_in = kLocal ? max(e_val, 0) : e_val;
-        cur = max(max(diag[r] + s, f_val), e_in);
-        e[r] = e_val;
-        f_up = f_val;
-      } else {
-        int l_in = left[r] + a.gap_read;
-        if (kLocal) l_in = max(l_in, 0);
-        cur = max(max(diag[r] + s, up + a.gap_ref), l_in);
-      }
-      if (kCoords) {
-        // Per-row leftmost strict maximum; rows merge after the sweep.
-        if (cur > rbest[r]) {
-          rbest[r] = cur;
-          rcol[r] = j;
-        }
-      } else if (kLocal) {
-        best = max(best, cur);
-      }
-      diag[r] = up;
-      left[r] = cur;
-      up = cur;
-    }
-    hcol[(size_t)j * np] = up;
-    if (kAffine) fscol[(size_t)j * np] = f_up;
-  }
-  if (kCoords) res.fold_rows<R>(rbest, rcol, i0);
-  if (!kLocal) {
-    // NW: the last column of every row (DefaultKernel.cpp:177).
-#pragma unroll
-    for (int r = 0; r < R; ++r) best = max(best, left[r]);
-  }
-}
+  __device__ int row(int i) const { return query_is_read ? i * s : code(i); }
+  __device__ int load(int j) const { return query_is_read ? code(j) : j * s; }
+  __device__ int col(int c) const { return c; }
+  __device__ int score(int ro, int co) const { return lookup<kTab>(prof, ro + co); }
+};
 
 template <bool kLocal, bool kAffine, bool kCoords, int kTab>
 __global__ void __launch_bounds__(kThreads) search_kernel(SearchArgs a) {
@@ -178,24 +111,15 @@ __global__ void __launch_bounds__(kThreads) search_kernel(SearchArgs a) {
   if (p >= a.r) return;
   const size_t np = (size_t)a.k * a.r;
   const size_t pp = (size_t)k * a.r + p;
-  int32_t best = 0;  // the SW seed, and the NW clamp at 0
+  const val::Gaps g{a.gap_read, a.gap_ref, a.open_read, a.open_ref};
+  const ProfileSub<kTab> sub{a.pool + p, prof, a.r, a.s, a.query_is_read};
   val::FillResult res;
-  val::for_sweeps(a.m, [&](auto R, int i0) {
-    sweep<decltype(R)::value, kLocal, kAffine, kCoords, kTab>(a, prof, p, pp, np,
-                                                              i0, best, res);
-  });
+  a.out[pp] = val::score_pair<kLocal, kAffine, kCoords>(
+      sub, g, a.m, a.n, a.h + pp, kAffine ? a.f + pp : nullptr, np, res);
   if (kCoords) {
-    a.out[pp] = res.best;
     a.end_row[pp] = res.row;
     a.end_col[pp] = res.col;
-    return;
   }
-  if (!kLocal) {
-    // NW: ... and the whole final row (DefaultKernel.cpp:189-191); its
-    // column 0 is 0, which the seed covers.
-    for (int j = 0; j < a.n; ++j) best = max(best, a.h[(size_t)j * np + pp]);
-  }
-  a.out[pp] = best;
 }
 
 // Launches one instantiation over the k queries, kMaxGridY at a time;
