@@ -53,13 +53,34 @@ Phases (any failure exits non-zero before a result is printed):
    and instances found where they were planted;
 7. times of the one-vs-many kernel at each path's launch shape (median of
    7, min, max, GCUPS), its plain version's at the slice shape, the bound;
-8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
-   ``{"ok": true, "device": {...}}``.
+8. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
+   ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
+   SW, NW x linear, affine x DNA, BLOSUM62 (fill: x both flavors) at 256
+   pairs of 1500 x 1800, band 333 (steps of 2, a partial pointer word, rows
+   padded to the score tile), and the models' defaults (DNA linear SW and NW,
+   BWA-MEM affine SW) on 32 of the long pairs at full length;
+9. the banded models at full width: ``banded_smith_waterman(band=512)``,
+   ``banded_needleman_wunsch(band=512)`` and a banded BWA-MEM affine model,
+   ``score`` and ``align`` on 1024 pairs of 16 kbp (each ref a window of the
+   genome, each read a HiFi-like copy), launch counts read around each call
+   (B5 for ``score``, B6 for ``align``, no other kernel), 16 pairs checked
+   against the plain reference on the card, ``align`` split into fill
+   (CUDA events), pointer copy, host decode and the rest;
+10. ``map_long_reads`` of 256 HiFi-like reads of 12-15 kbp on both strands
+    and 16 junk reads against the 4.64 Mbp genome: the index timed alone, B6
+    the only kernel, every planted read within 50 bp of its origin on its
+    strand, junk unmapped, 16 reads checked against the plain reference, the
+    wall split into seeding and chaining, fill, decode and the rest;
+11. times of B5 and B6 at 1024 pairs of 16 kbp, band 512 (median of 7, min,
+    max, GCUPS in band cells), the plain versions' on the 32-pair slice, the
+    bounds;
+12. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+    ``{"ok": true, "device": {...}}``.
 
 DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
 standard residues with about 1% X, both with random trailing padding, made
-with numpy from ``--seed``; the search paths' inputs are described at
-``make_*``. Nothing of JAX is imported.
+with numpy from ``--seed``; the search and long-pair paths' inputs are
+described at ``make_*``. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -257,7 +278,7 @@ def register_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
-            found = re.search(r"([a-z]+_kernel)I(.*)EEvNS", name)
+            found = re.search(r"([a-z_]+_kernel)I(.*)EEvN", name)
             kernel = (f"{found.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', found.group(2) + 'E'))}>"
                       if found else name)
         elif "spill stores" in line:
@@ -1152,6 +1173,453 @@ def phase_search_times(dev, data, paths: dict, errs: dict, fills: dict) -> list[
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The long-pair paths: the banded kernels (csrc/banded_score.cu, B5, and
+# csrc/banded_align.cu, B6)
+# ---------------------------------------------------------------------------
+
+#: The banded shapes. BANDED_ODD (pairs, m, n, band) is the branch sweep's
+#: shape: steps of 2 columns a row, a partial last pointer word (333 % 8),
+#: and rows padded to the score tile (1500 % 256). BANDED_PAIRS pairs of
+#: BANDED_LEN bp at band BAND are the banded models' run (BENCHMARKS.md:140's
+#: shape: 1024 pairs of 16 kbp, band 512), BANDED_SLICE of them are held to
+#: the plain versions at full length, BANDED_CHECK checked field by field.
+BANDED_ODD = (256, 1500, 1800, 333)
+BANDED_PAIRS, BANDED_LEN, BAND, BAND_TILE = 1024, 16000, 512, 256
+BANDED_SLICE, BANDED_CHECK = 32, 16
+#: map_long_reads: LONG_READS HiFi-like reads of LONG_MIN..LONG_MAX bp
+#: planted on both strands of the GENOME_LEN reference, and LONG_JUNK random
+#: reads of JUNK_LEN bp; a read maps within LONG_SLACK bp of its origin.
+LONG_READS, LONG_MIN, LONG_MAX, LONG_JUNK, JUNK_LEN, LONG_SLACK = 256, 12000, 15000, 16, 12000, 50
+#: HiFi-like errors: substitutions and indels (of 1-3 bp) per base.
+HIFI_SUB, HIFI_INDEL = 0.005, 0.003
+
+#: int32 operations per band cell, (SW, NW), counted from the kernels' cell
+#: loops (csrc/banded.cuh pass_a and scan, the kernels' second pass):
+#: - recurrence, linear: diag and up adds, two maxes, the fold's add and
+#:   max, the second pass's add and max (8); SW adds its running max (9 / 8).
+#:   Affine: diag add; F: two adds, two maxes; T: two maxes; the fold: two
+#:   adds, a max; the second pass: E add and clamp, H max, U two adds and a
+#:   max (16); SW +1 (17 / 16);
+#: - substitution: DNA two range compares, an equality compare and a select
+#:   (4); a matrix a compare, a select and the index add (2);
+#: - the fill (B6) adds: the substitution, diag add (and linear up add)
+#:   again in its second pass; the move (three compares, two selects, the SW
+#:   zero-force compare and select: 7 / 6); packing (shift, or: 2); SW's
+#:   first-win update (a compare, three selects: 4, for the score's max) or
+#:   NW's row capture (1); affine the extend bits (two adds, two compares,
+#:   two selects, two ors: 8).
+BANDED_RECURRENCE = {"linear": (9, 8), "affine": (17, 16)}
+BANDED_SUB = {"dna": 4, "matrix": 2}
+BANDED_FILL_EXTRA = {"linear": (2 + 7 + 2 + 3, 2 + 6 + 2 + 1),
+                     "affine": (1 + 7 + 2 + 3 + 8, 1 + 6 + 2 + 1 + 8)}
+
+
+def banded_ops_per_cell(kind: str, gap: str, scoring: str) -> tuple[int, int]:
+    """(SW, NW) int32 operations per band cell of ``kind`` ("score" or
+    "align")."""
+    sub = BANDED_SUB[scoring]
+    (sw, nw), extra = BANDED_RECURRENCE[gap], BANDED_FILL_EXTRA[gap]
+    if kind == "score":
+        return sub + sw, sub + nw
+    return 2 * sub + sw + extra[0], 2 * sub + nw + extra[1]
+
+
+def _all_kernels():
+    """Every kernel of the package, by name."""
+    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_banded import BANDED_ALIGN_KERNEL, BANDED_SCORE_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
+
+    return {"score": SCORE_KERNEL, "align": ALIGN_KERNEL, "align_affine": AFFINE_KERNEL,
+            "search": SEARCH_KERNEL, "banded_score": BANDED_SCORE_KERNEL,
+            "banded_align": BANDED_ALIGN_KERNEL}
+
+
+def hifi_copy(rng, seq: np.ndarray, length: int | None = None) -> np.ndarray:
+    """A HiFi-like copy of ``seq``: HIFI_SUB substitutions and HIFI_INDEL
+    insertions or deletions of 1-3 bp per base; cut or padded with 0 to
+    ``length`` when given."""
+    seq = _substitute(rng, seq, HIFI_SUB, 4)
+    n = seq.shape[0]
+    where = np.sort(rng.choice(n, size=rng.binomial(n, HIFI_INDEL), replace=False))
+    parts, lo = [], 0
+    for pos in where:
+        if pos < lo:
+            continue
+        size = int(rng.integers(1, 4))
+        parts.append(seq[lo:pos])
+        if rng.random() < 0.5:      # insertion before pos
+            parts.append(rng.integers(1, 5, size=size).astype(np.uint8))
+            lo = pos
+        else:                       # deletion of seq[pos:pos + size]
+            lo = pos + size
+    parts.append(seq[lo:])
+    out = np.concatenate(parts).astype(np.uint8)
+    if length is None:
+        return out
+    padded = np.zeros(length, dtype=np.uint8)
+    padded[:min(length, out.shape[0])] = out[:length]
+    return padded
+
+
+def make_banded_pairs(rng, genome: np.ndarray):
+    """BANDED_PAIRS refs, each a BANDED_LEN window of the genome, and reads,
+    each a HiFi-like copy of its ref padded to BANDED_LEN."""
+    starts = rng.integers(0, genome.shape[0] - BANDED_LEN + 1, size=BANDED_PAIRS)
+    refs = genome[starts[:, None] + np.arange(BANDED_LEN)]
+    reads = np.stack([hifi_copy(rng, f, BANDED_LEN) for f in refs])
+    return reads, refs
+
+
+def make_long_reads(rng, genome: np.ndarray):
+    """LONG_READS HiFi-like reads of LONG_MIN..LONG_MAX bp from random
+    origins of the genome, half reverse-complemented, then LONG_JUNK random
+    reads of JUNK_LEN: (reads, origin, reverse), origin -1 for junk."""
+    from versalignlib_tpu_torch.alphabet import reverse_complement_codes
+
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=LONG_READS)
+    origin = rng.integers(0, genome.shape[0] - LONG_MAX, size=LONG_READS)
+    rev = rng.random(LONG_READS) < 0.5
+    reads = []
+    for p, n, r in zip(origin, lens, rev):
+        read = hifi_copy(rng, genome[p:p + n])
+        reads.append(reverse_complement_codes(read) if r else read)
+    reads += [rng.integers(1, 5, size=JUNK_LEN).astype(np.uint8) for _ in range(LONG_JUNK)]
+    return (reads, np.concatenate([origin, np.full(LONG_JUNK, -1)]),
+            np.concatenate([rev, np.zeros(LONG_JUNK, bool)]))
+
+
+def _banded_inputs(r_np, f_np, band: int, tile: int | None, dev):
+    """Codes on the card, rows padded to ``tile`` (None: not padded), and
+    the band starts, as banded_score_batch / banded_align_batch make them."""
+    from versalignlib_tpu_torch.ops.banded import band_offsets
+
+    m, n = r_np.shape[1], f_np.shape[1]
+    m_pad = m if tile is None else -(-m // tile) * tile
+    padded = np.zeros((r_np.shape[0], m_pad), np.uint8)
+    padded[:, :m] = r_np
+    return (torch.from_numpy(padded).to(dev), torch.from_numpy(np.ascontiguousarray(f_np)).to(dev),
+            band_offsets(m_pad, m, n, band))
+
+
+def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, timed=None) -> int:
+    """B5 and B6 against their plain versions on the card, every output
+    with ``==``: scores at the score tile's padded rows, and (ptr, best,
+    keep) under each tie flavor. ``timed`` collects one CUDA-event time of
+    each plain call. Returns the max abs error (0)."""
+    from versalignlib_tpu_torch.ops import cuda_banded, plain_banded
+    from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    def plain_call(key, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        if timed is not None:
+            timed[key] = start.elapsed_time(end)
+        return out
+
+    err = 0
+    for alg in algs or Algorithm:
+        key = "sw" if alg == Algorithm.SMITH_WATERMAN else "nw"
+        r, f, offs = _banded_inputs(r_np, f_np, band, BAND_TILE, dev)
+        got = cuda_banded.score(r, f, offs, params, alg, band)
+        want = plain_call(("score", key), lambda: plain_banded.banded_score(
+            r, f, offs, params, alg, band))
+        err = max(err, check_equal(f"banded_score {label} {alg.name}", got, want))
+        r, f, offs = _banded_inputs(r_np, f_np, band, None, dev)
+        for tie in ties or TieBreak:
+            mrp = torch.from_numpy(last_valid_pos(r_np, tie, params.matrix)).to(dev)
+            got = cuda_banded.fill(r, f, offs, mrp, params, alg, tie, band)
+            want = plain_call(("align", key), lambda: plain_banded.banded_fill(
+                r, f, offs, mrp, params, alg, tie, band))
+            for part, g, w in zip(("ptr", "best", "keep"), got, want):
+                if (g is None) != (w is None):
+                    raise AssertionError(f"banded_align {label} {part}: one side is None")
+                if g is not None:
+                    err = max(err, check_equal(
+                        f"banded_align {label} {part} {alg.name} {tie.name}", g, w))
+    return err
+
+
+def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
+    """Every branch of B5 and B6 against its plain version at BANDED_ODD,
+    and the models' defaults at full length on BANDED_SLICE of the models'
+    pairs. Returns the max abs error per kernel name (0), and the plain
+    versions' times on the slice."""
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    err: dict[str, int] = {}
+    b, m, n, band = BANDED_ODD
+    for name, params in _param_sets().items():  # every (gap, scoring) branch
+        r_np = codes_for(params, rng, b, m)
+        f_np = codes_for(params, rng, b, n)
+        e = check_banded(f"{name} {b}x{m}x{n} band {band}", r_np, f_np, params, band, dev)
+        for kind in ("banded_score", "banded_align"):
+            key = _kernel_name(kind, params)
+            err[key] = max(err.get(key, 0), e)
+        log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} SW, NW (fill: "
+            f"both flavors) B={b} {m}x{n} band {band}")
+    sets = _param_sets()
+    reads, refs = pairs[0][:BANDED_SLICE], pairs[1][:BANDED_SLICE]
+    plain_ms = {}
+    canon = (TieBreak.DIAG_UP_LEFT,)
+    # The models' defaults in both algorithms; every other branch SW, on the
+    # same pairs (codes 1-5 are residues A, R, N, D, C under BLOSUM62).
+    for name, algs in (("dna_default", list(Algorithm)),
+                       ("dna_affine_bwamem", [Algorithm.SMITH_WATERMAN]),
+                       ("protein_blosum62_affine", [Algorithm.SMITH_WATERMAN]),
+                       ("protein_blosum62_linear", [Algorithm.SMITH_WATERMAN])):
+        params = sets[name]
+        timed = {}
+        e = check_banded(f"{name} slice", reads, refs, params, BAND, dev, algs, canon, timed)
+        for kind in ("banded_score", "banded_align"):
+            key = _kernel_name(kind, params)
+            err[key] = max(err[key], e)
+        plain_ms[name] = timed
+        log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} "
+            f"{'SW, NW' if len(algs) == 2 else 'SW'} B={BANDED_SLICE} {BANDED_LEN}x{BANDED_LEN} "
+            f"band {BAND}; plain ms {json.dumps({f'{k}_{a}': round(v, 1) for (k, a), v in timed.items()})}")
+    torch.cuda.synchronize()
+    return err, plain_ms
+
+
+@contextlib.contextmanager
+def _plain_banded():
+    """The reference runs, plain throughout on the card: the banded
+    wrappers swapped for their plain versions and every kernel's launch made
+    to raise."""
+    from versalignlib_tpu_torch.ops import cuda_banded, plain_banded
+
+    def refuse(*args):
+        raise AssertionError("a kernel launched during a plain reference run")
+
+    kernels = list(_all_kernels().values())
+    saved = (cuda_banded.score, cuda_banded.fill)
+    cuda_banded.score = plain_banded.banded_score
+    cuda_banded.fill = plain_banded.banded_fill
+    for k in kernels:
+        k.launch = refuse
+    try:
+        yield
+    finally:
+        cuda_banded.score, cuda_banded.fill = saved
+        for k in kernels:
+            del k.launch
+
+
+def _run_banded(name: str, fn, want: str):
+    """Run ``fn`` once with every launch count set to 0 just before and read
+    just after; ``want`` must have launched and no other kernel. Returns
+    (result, {"launches", "split"}), the split in ms: wall, the fill kernel
+    (CUDA events), the host decode (host clock)."""
+    from versalignlib_tpu_torch.ops import banded
+
+    kernels = _all_kernels()
+    decode_ms: list[float] = []
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    with _LaunchTimer(kernels["banded_align"]) as fill, \
+            _host_timed(banded, "decode_banded_native", decode_ms):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in kernels.items()}
+    if launches[want] < 1 or any(v for k, v in launches.items() if k != want):
+        raise AssertionError(f"{name}: launches {launches}; only {want} may launch")
+    split = {"wall_ms": wall, "fill_ms": fill.ms(), "decode_ms": sum(decode_ms)}
+    return result, {"launches": launches[want], "split": split}
+
+
+def phase_banded_models(rng, dev, pairs) -> dict:
+    """The banded models at full width on BANDED_PAIRS pairs: score (B5) and
+    align (B6) each run once with the launch counts read around it, checked
+    on BANDED_CHECK pairs against the plain reference on the card."""
+    from versalignlib_tpu_torch import models
+    from versalignlib_tpu_torch.ops import cuda_banded
+    from versalignlib_tpu_torch.types import Algorithm
+
+    reads, refs = pairs
+    pick = np.sort(rng.choice(BANDED_PAIRS, size=BANDED_CHECK, replace=False))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rounds = cuda_banded.chunk_pairs_for(BANDED_LEN, BAND, sms)
+    t0 = time.perf_counter()
+    for slot in (0, 1):
+        cuda_banded.PINNED.take(slot, (rounds, BANDED_LEN, BAND // 8))
+    pin_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"[banded] rounds of {rounds} pairs; two page-locked buffers of "
+        f"{4 * rounds * BANDED_LEN * BAND // 8 / 2**30:.2f} GiB pinned in {pin_ms:.1f} ms")
+    runs = {
+        "banded_smith_waterman": ("dna_default", models.banded_smith_waterman(band=BAND)),
+        "banded_needleman_wunsch": ("dna_default", models.banded_needleman_wunsch(band=BAND)),
+        "banded_affine_bwamem": ("dna_affine_bwamem", models.AlignmentModel(
+            "banded_affine_bwamem", Algorithm.SMITH_WATERMAN, _param_sets()["dna_affine_bwamem"],
+            banded=True, band=BAND, band_tile=BAND_TILE)),
+    }
+    out = {"rounds": rounds, "pin_ms": pin_ms}
+    for name, (pname, model) in runs.items():
+        scores, s_run = _run_banded(f"{name}.score", lambda: model.score(reads, refs),
+                                    "banded_score")
+        alns, a_run = _run_banded(f"{name}.align", lambda: model.align(reads, refs),
+                                  "banded_align")
+        if scores.shape != (BANDED_PAIRS,) or (scores <= 0).any() or len(alns) != BANDED_PAIRS:
+            raise AssertionError(f"{name}: bad scores or alignment count")
+        if not (scores == np.array([a.score for a in alns])).all():
+            raise AssertionError(f"{name}: scores and alignment scores disagree")
+        with _plain_banded():
+            want_s = model.score(reads[pick], refs[pick])
+            want_a = model.align(reads[pick], refs[pick])
+        if not (scores[pick] == want_s).all():
+            raise AssertionError(f"{name}: scores differ from the plain reference")
+        _check_alignments(name, [alns[i] for i in pick], want_a)
+        # The pointer words' trip to the host alone, at the bytes of a round.
+        words = torch.empty((rounds, BANDED_LEN, -(-BAND // 8)), dtype=torch.int32, device=dev)
+        host = cuda_banded.PINNED.take(0, tuple(words.shape))
+        copy_ms = time_cuda(lambda: host.copy_(words, non_blocking=True), reps=3)["median"]
+        del words
+        # The rounds overlap (round 2 fills and copies while round 1
+        # decodes), so the rest is negative where they do.
+        d2h = copy_ms * BANDED_PAIRS / rounds
+        split = dict(a_run["split"], d2h_ms=d2h)
+        split["rest_ms"] = split["wall_ms"] - split["fill_ms"] - split["decode_ms"] - d2h
+        out[name] = {"params": pname, "score_launches": s_run["launches"],
+                     "align_launches": a_run["launches"], "score_wall_ms": s_run["split"]["wall_ms"],
+                     "align_split": split}
+        log(f"[banded] {name}: score B5 x{s_run['launches']} "
+            f"({s_run['split']['wall_ms']:.1f} ms), align B6 x{a_run['launches']} "
+            + json.dumps({k: round(v, 3) for k, v in split.items()})
+            + f"; {BANDED_CHECK} pairs == plain reference")
+    return out
+
+
+def phase_long_reads(rng, genome: np.ndarray) -> dict:
+    """map_long_reads at real size: the index timed on its own, the mapping
+    run once with the launch counts read around it (B6 only), every planted
+    read within LONG_SLACK of its origin on its strand, every junk read
+    unmapped, 16 reads checked field by field against the plain reference."""
+    import dataclasses
+
+    from versalignlib_tpu_torch import build_index, longread, map_long_reads
+
+    reads, origin, rev = make_long_reads(rng, genome)
+    t0 = time.perf_counter()
+    index = build_index(genome, k=15, w=10)
+    index_ms = 1e3 * (time.perf_counter() - t0)
+    chain_ms: list[float] = []
+    with _host_timed(longread, "find_chains", chain_ms):
+        hits, run = _run_banded("map_long_reads", lambda: map_long_reads(reads, (index, [genome])),
+                                "banded_align")
+    split = dict(run["split"], index_ms=index_ms, seed_chain_ms=sum(chain_ms))
+    split["rest_ms"] = (split["wall_ms"] - split["seed_chain_ms"] - split["fill_ms"]
+                        - split["decode_ms"])
+    planted = origin >= 0
+    off = np.abs(hits.pos - origin)
+    bad = planted & ((hits.ref_id != 0) | (off > LONG_SLACK) | (hits.strand != rev))
+    if bad.any() or (hits.ref_id[~planted] != -1).any():
+        raise AssertionError(f"map_long_reads: {bad.sum()} planted reads off their origin or "
+                             f"strand, {(hits.ref_id[~planted] != -1).sum()} junk reads mapped")
+    pick = np.concatenate([np.arange(min(12, LONG_READS)),
+                           np.arange(len(reads) - min(4, LONG_JUNK), len(reads))])
+    with _plain_banded():
+        want = map_long_reads([reads[i] for i in pick], (index, [genome]))
+    for field in ("ref_id", "pos", "strand", "score", "mapq", "chain_score"):
+        if not np.array_equal(getattr(hits, field)[pick], getattr(want, field)):
+            raise AssertionError(f"map_long_reads: {field} differs from the plain reference")
+    for i, w in zip(pick, want.alignments):
+        g = hits.alignments[i]
+        if (g is None) != (w is None) or (g is not None and dataclasses.asdict(g)
+                                          != dataclasses.asdict(w)):
+            raise AssertionError("map_long_reads: alignments differ from the plain reference")
+    log(f"[longread] {LONG_READS} reads of {LONG_MIN}-{LONG_MAX} bp + {LONG_JUNK} junk vs "
+        f"{genome.shape[0]} bp: B6 x{run['launches']}; every planted read within "
+        f"{LONG_SLACK} bp (max {int(off[planted].max())}) on its strand, junk unmapped; "
+        f"{len(pick)} == plain reference; "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return {"launches": run["launches"], "split": split, "index_entries": len(index),
+            "max_offset_bp": int(off[planted].max())}
+
+
+def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
+                       longreads: dict) -> list[dict]:
+    """B5 and B6 at the full shape (BANDED_PAIRS pairs of BANDED_LEN, band
+    BAND), SW and NW, in every (gap model, scoring) branch (the BLOSUM62
+    branches on the same pairs, whose codes are residues there): the median
+    of 7 with min and max, GCUPS in band cells, the bound; the plain
+    versions' times are the slice's (BANDED_SLICE pairs). Launches are the
+    banded models' runs, which take the DNA branches (0 for the others)."""
+    from versalignlib_tpu_torch.ops import cuda_banded
+    from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    reads, refs = pairs
+    sets = _param_sets()
+    tie = TieBreak.DIAG_UP_LEFT
+    entries = []
+    for pname, params in sets.items():
+        gap, scoring = branch_of(params)
+        for kind, source, replaces in (
+                ("banded_score", "banded_score.cu", "versalignlib_tpu/ops/banded.py:354"),
+                ("banded_align", "banded_align.cu", "versalignlib_tpu/ops/banded.py:710")):
+            score = kind == "banded_score"
+            r, f, offs = _banded_inputs(reads, refs, BAND, BAND_TILE if score else None, dev)
+            b, m = r.shape
+            n = f.shape[1]
+            cells = b * m * BAND
+            nw_words = -(-BAND // 8)
+            t = {}
+            for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+                if score:
+                    km = time_cuda(lambda: cuda_banded.score(r, f, offs, params, alg, BAND))
+                    nbytes = b * (m + n) + 4 * m + 4 * b
+                else:
+                    mrp = torch.from_numpy(last_valid_pos(reads, tie, params.matrix)).to(dev)
+                    km = time_cuda(lambda: cuda_banded.fill(r, f, offs, mrp, params, alg, tie,
+                                                            BAND))
+                    nbytes = (b * (m + n) + 4 * m + 4 * b + 4 * b * m * nw_words
+                              + (16 * b if key == "sw" else 4 * b * BAND))
+                ops = banded_ops_per_cell("score" if score else "align", gap, scoring)[
+                    0 if key == "sw" else 1]
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops * cells / INT32_OPS_PER_S
+                pl = plain_ms[pname].get(("score" if score else "align", key))
+                t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
+                          "gcups": cells / km["median"] / 1e6, "plain_ms": pl,
+                          "bound_ms": 1e3 * max(t_bytes, t_ops),
+                          "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                          "ops_per_cell": ops}
+                log(f"[times] {source} {pname} {key} B={b} {m}x{n} band {BAND}: "
+                    f"{km['median']:.3f} ms (min {km['min']:.3f}, max {km['max']:.3f}), "
+                    f"{t[key]['gcups']:.1f} GCUPS (band cells); plain "
+                    f"{'not run' if pl is None else f'{pl:.1f} ms'} on {BANDED_SLICE} pairs; "
+                    f"bound {t[key]['bound_ms']:.3f} ms ({t[key]['bound_by']})")
+            sw = t["sw"]
+            model_runs = {k: v for k, v in runs.items()
+                          if isinstance(v, dict) and v["params"] == pname}
+            launches = sum(v["score_launches" if score else "align_launches"]
+                           for v in model_runs.values())
+            entry = {
+                "name": _kernel_name(kind, params), "route": "cuda",
+                "source": f"versalignlib_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": launches, "max_abs_err": errs[_kernel_name(kind, params)],
+                "tolerance": 0, "ms": sw["ms"], "plain_ms": sw["plain_ms"],
+                "bound_ms": sw["bound_ms"], "bound_by": sw["bound_by"], "library_ms": None,
+                "params": pname, "shape": [b, m, n], "band": BAND, "algorithm": "SW",
+                "ms_min": sw["ms_min"], "ms_max": sw["ms_max"], "gcups": sw["gcups"],
+                "plain_pairs": BANDED_SLICE, "nw": t["nw"], "matches_plain": True,
+                "models": {k: (v["align_split"] if not score else v["score_wall_ms"])
+                           for k, v in model_runs.items()},
+            }
+            if not score and pname == "dna_default":
+                entry["map_long_reads"] = longreads
+            entries.append(entry)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1195,7 +1663,24 @@ def main() -> int:
     log(f"[phase] search paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += phase_search_times(dev, data, paths, search_errs, fill_errs)
-    log(f"[phase] search times: {time.perf_counter() - t0:.1f} s; whole script "
+    log(f"[phase] search times: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    genome = data["map_to_reference"][1]
+    pairs = make_banded_pairs(rng, genome)
+    log(f"[phase] banded data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    banded_errs, banded_plain = phase_banded_kernels_vs_plain(rng, dev, pairs)
+    log(f"[phase] banded kernels vs plain: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    banded_runs = phase_banded_models(rng, dev, pairs)
+    log(f"[phase] banded models: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    longreads = phase_long_reads(rng, genome)
+    log(f"[phase] long reads: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += phase_banded_times(rng, dev, pairs, banded_errs, banded_plain, banded_runs,
+                                  longreads)
+    log(f"[phase] banded times: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -54,6 +54,8 @@ def test_port_imports_with_jax_blocked():
         "from versalignlib_tpu_torch import refmap, search, stats, translate\n"
         "from versalignlib_tpu_torch.utils import capabilities, logging\n"
         "from versalignlib_tpu_torch import native\n"
+        "from versalignlib_tpu_torch.ops import banded, cuda_banded, plain_banded\n"
+        "from versalignlib_tpu_torch import longread, models, seed\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -223,4 +225,48 @@ def test_search_kernel_launches_or_raises_never_the_plain_version(monkeypatch):
         for name, call in _search_entry_points("cuda").items():
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
+    assert calls == []
+
+
+def test_banded_paths_need_a_card_and_launch_or_raise(monkeypatch):
+    """The banded entry points run on the card or raise without one; a
+    tensor that is not on the CPU never reaches the plain banded versions."""
+    from versalignlib_tpu_torch import (banded_align_batch, banded_score_batch,
+                                        map_long_reads, models)
+    from versalignlib_tpu_torch.ops import cuda_banded, plain_banded
+
+    calls = []
+    for name in ("banded_score", "banded_fill"):
+        monkeypatch.setattr(plain_banded, name, lambda *a: calls.append(a))
+    reads = np.ones((2, 20), np.uint8)
+    refs = np.ones((2, 24), np.uint8)
+    sw = Algorithm.SMITH_WATERMAN
+    entry_points = {
+        "banded_score_batch": lambda: banded_score_batch(reads, refs, DEFAULT_PARAMETERS, sw),
+        "banded_align_batch": lambda: banded_align_batch(reads, refs, DEFAULT_PARAMETERS, sw),
+        "model.score": lambda: models.banded_smith_waterman(band=8).score(reads, refs),
+        "model.align": lambda: models.banded_needleman_wunsch(band=8).align(reads, refs),
+        "map_long_reads": lambda: map_long_reads(["ACGT" * 20], ["ACGT" * 40]),
+    }
+    if torch.cuda.is_available():
+        before = cuda_banded.BANDED_SCORE_KERNEL.launches
+        entry_points["banded_score_batch"]()
+        assert cuda_banded.BANDED_SCORE_KERNEL.launches == before + 1
+    else:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: False)
+            for name, call in entry_points.items():
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    call()
+        meta = torch.device("meta")
+        r, f = torch.from_numpy(reads).to(meta), torch.from_numpy(refs).to(meta)
+        for p in (DEFAULT_PARAMETERS, _AFFINE, _MATRIX):
+            with pytest.raises(ValueError, match="device"):
+                cuda_banded.score(r, f, np.zeros(20, np.int32), p, sw, 8)
+        # Past the device gate, the entry points reach the card or raise.
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            for name in ("banded_score_batch", "banded_align_batch", "model.score"):
+                with pytest.raises((RuntimeError, AssertionError)):
+                    entry_points[name]()
     assert calls == []

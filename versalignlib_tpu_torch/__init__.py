@@ -3,7 +3,8 @@
 Pairwise alignment (Smith-Waterman and the reference's semi-global
 "Needleman-Wunsch"), one-vs-many search, read mapping against panels and
 whole references, PSSM profile search, six-frame translated search and hit
-statistics, with hand-written CUDA kernels for NVIDIA Hopper (``csrc/``),
+statistics, banded long pairs and seed-chain-extend long-read mapping, with
+hand-written CUDA kernels for NVIDIA Hopper (``csrc/``),
 held bit for bit against the JAX package. The package imports ``torch``,
 numpy and the standard library, never ``jax`` or ``versalignlib_tpu``.
 
@@ -11,10 +12,14 @@ numpy and the standard library, never ``jax`` or ``versalignlib_tpu``.
     engine = AlignmentEngine()            # runs on the card ("cuda")
     scores = engine.score_alignments(Algorithm.SMITH_WATERMAN, reads, refs)
     hits = map_reads(reads, panel)        # one-vs-many on the card
+    alns = models.banded_needleman_wunsch(band=512).align(long_reads, long_refs)
 """
 
+from versalignlib_tpu_torch import models
 from versalignlib_tpu_torch.alphabet import decode, encode, pad_and_encode
 from versalignlib_tpu_torch.dispatch import AlignmentEngine
+from versalignlib_tpu_torch.longread import LongReadHits, find_chains, map_long_reads
+from versalignlib_tpu_torch.ops.banded import banded_align_batch, banded_score_batch
 from versalignlib_tpu_torch.ops.pssm import (ProfileHit, calibrate_profile, pack_pssm,
                                              profile_search, pssm_from_sequences)
 from versalignlib_tpu_torch.params import (
@@ -26,6 +31,7 @@ from versalignlib_tpu_torch.refmap import (ReferenceHits, WindowIndex, map_to_re
                                            tile_references)
 from versalignlib_tpu_torch.search import (PairedHits, SearchHits, best_hits,
                                            map_read_pairs, map_reads, score_matrix)
+from versalignlib_tpu_torch.seed import MinimizerIndex, build_index, minimizers
 from versalignlib_tpu_torch.stats import (ROBINSON_FREQS, GumbelCalibration, calibrate,
                                           calibrate_islands, karlin_lambda)
 from versalignlib_tpu_torch.translate import (TranslatedHits, calibrate_translated,
@@ -68,4 +74,13 @@ __all__ = [
     "calibrate_translated",
     "translate_six_frames",
     "TranslatedHits",
+    "models",
+    "banded_score_batch",
+    "banded_align_batch",
+    "map_long_reads",
+    "LongReadHits",
+    "build_index",
+    "MinimizerIndex",
+    "minimizers",
+    "find_chains",
 ]

@@ -65,6 +65,17 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out bufs
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int,      # cigar_cap, meta, threads
         ]
+        lib.val_decode_banded.restype = ctypes.c_int
+        lib.val_decode_banded.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # words, band, win
+            ctypes.c_void_p, ctypes.c_void_p,                 # offsets, wbase
+            ctypes.c_void_p, ctypes.c_void_p,                 # reads, refs
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # starts, scores
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, m_rows, m, n
+            ctypes.c_int,                                     # is_affine
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out bufs
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,      # cigar_cap, meta, threads
+        ]
         _lib = lib
         return _lib
 
@@ -154,9 +165,16 @@ def decode_batch_native(
     )
     if rc != 0:
         raise RuntimeError(f"val_decode_batch failed: {rc}")
+    return _results(read_g, ref_g, cigar, meta, raw)
 
+
+def _results(read_g, ref_g, cigar, meta, raw: bool):
+    """The decoder's columns as an :class:`AlignmentBatch` (``raw``) or a
+    list of :class:`Alignment`."""
     if raw:
         return AlignmentBatch(read_g, ref_g, cigar, meta)
+    b, aln_cap = read_g.shape
+    cigar_cap = cigar.shape[1]
     out = []
     rg_bytes = read_g.tobytes()
     fg_bytes = ref_g.tobytes()
@@ -180,3 +198,74 @@ def decode_batch_native(
             )
         )
     return out
+
+
+def decode_banded_native(
+    words: np.ndarray,      # (b, m_rows, win//8) int32 pointer words
+    band: int,
+    win: int,
+    offsets: np.ndarray,    # (m_rows,) int32 band start per row
+    wbase: np.ndarray,      # (m_rows,) int32 column of word 0's field 0 per row
+    reads: np.ndarray,
+    refs: np.ndarray,
+    start_read_pos: np.ndarray,
+    start_ref_pos: np.ndarray,
+    params,
+    algorithm,
+    scores: np.ndarray,
+    n_threads: int | None = None,
+    raw: bool = False,
+    gapped: bool = True,
+):
+    """Banded traceback decode through the C++ walker (linear or affine
+    codes, 8 per int32 word; ``val_decode_banded``), the counterpart of
+    ``versalignlib_tpu.native.decode_banded_native``. The code of cell (i, j)
+    is field ``(j - wbase[i]) % 8`` of word ``(j - wbase[i]) // 8`` of row i;
+    the walk stops at START, at row 0 or column 0, and where it leaves the
+    band of ``band`` columns right of ``offsets[i]``.
+
+    ``raw=True`` returns an :class:`AlignmentBatch`; ``gapped=False`` (raw
+    only) drops its gapped-string columns.
+    """
+    if not gapped and not raw:
+        raise ValueError("gapped=False requires raw=True (Alignment objects "
+                         "carry gapped strings)")
+    lib = _load()
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+    wbase = np.ascontiguousarray(wbase, dtype=np.int32)
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    refs = np.ascontiguousarray(refs, dtype=np.uint8)
+    start_r = np.ascontiguousarray(start_read_pos, dtype=np.int32)
+    start_f = np.ascontiguousarray(start_ref_pos, dtype=np.int32)
+    scores = np.ascontiguousarray(scores, dtype=np.int32)
+    b, m = reads.shape
+    n = refs.shape[1]
+    m_rows = words.shape[1]
+    if win % 8 or words.shape != (b, m_rows, win // 8) or m_rows < m \
+            or offsets.shape[0] < m_rows or wbase.shape[0] < m_rows:
+        raise ValueError(f"pointer words {words.shape} do not match {b} pairs of "
+                         f"{m} rows at {win // 8} words per row")
+    aln_cap = m + n
+    cigar_cap = 3 * aln_cap + 16
+    read_g = np.zeros((b, aln_cap), dtype=np.uint8)
+    ref_g = np.zeros((b, aln_cap), dtype=np.uint8)
+    cigar = np.zeros((b, cigar_cap), dtype=np.uint8)
+    meta = np.zeros((b, 8), dtype=np.int32)
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 1, 8)
+    vp = ctypes.c_void_p
+    rc = lib.val_decode_banded(
+        words.ctypes.data_as(vp), band, win,
+        offsets.ctypes.data_as(vp), wbase.ctypes.data_as(vp),
+        reads.ctypes.data_as(vp), refs.ctypes.data_as(vp),
+        start_r.ctypes.data_as(vp), start_f.ctypes.data_as(vp),
+        scores.ctypes.data_as(vp), b, m_rows, m, n, 1 if params.affine else 0,
+        read_g.ctypes.data_as(vp), ref_g.ctypes.data_as(vp),
+        cigar.ctypes.data_as(vp), cigar_cap, meta.ctypes.data_as(vp), n_threads,
+    )
+    if rc != 0:
+        raise RuntimeError(f"val_decode_banded failed: {rc}")
+    if not gapped:
+        read_g = ref_g = None
+    return _results(read_g, ref_g, cigar, meta, raw)

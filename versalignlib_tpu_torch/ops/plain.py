@@ -215,11 +215,11 @@ def profile_scores(table: torch.Tensor, pool: torch.Tensor,
     return scores
 
 
-def pack_words(codes: torch.Tensor, bits: int = 2) -> torch.Tensor:
+def pack_words(codes: torch.Tensor, bits: int = 2, pack: int | None = None) -> torch.Tensor:
     """(B, n) codes of ``bits`` bits -> (B, ceil(n/pack)) int32 words with
-    pack = 32 // bits, code j in bits ``bits*(j % pack)``; the unfilled fields
-    of a partial last word are 0 (START)."""
-    pack = 32 // bits
+    pack = 32 // bits unless given, code j in bits ``bits*(j % pack)``; the
+    unfilled fields of a partial last word are 0 (START)."""
+    pack = 32 // bits if pack is None else pack
     b, n = codes.shape
     nc = -(-n // pack)
     padded = torch.zeros((b, nc * pack), dtype=torch.int64, device=codes.device)

@@ -4,7 +4,8 @@ The counterpart of ``versalignlib_tpu/utils/capabilities.py``: the analogue
 of the reference's CPUID gate on the AVX backend (versalignUtil.cpp:78-181).
 The fit tests delegate to the kernels' own memory plans, as the JAX gates
 delegate to their kernels' VMEM plans; the one-vs-many gate
-(:func:`check_search_budget`) holds a launch's plan to the free memory.
+(:func:`check_search_budget`) and the banded gate
+(:func:`check_banded_budget`) hold a launch's plan to the free memory.
 """
 
 from __future__ import annotations
@@ -64,6 +65,20 @@ def check_search_budget(m: int, n: int, pairs: int, affine: bool,
             f"{free / 2**20:.0f}MB free. Long pairs belong on the banded path "
             "(models.banded_smith_waterman / --band); for reference mapping "
             "use a smaller --window; or lower max_pairs.")
+
+
+def check_banded_budget(plan_bytes: int, device: torch.device) -> None:
+    """Refuse a banded launch whose memory plan (``cuda_banded
+    .banded_mem_plan``) exceeds the free memory of ``device``, instead of
+    running out of memory. Nothing to check off the card."""
+    if device.type != "cuda":
+        return
+    free = free_device_bytes(device)
+    if plan_bytes > free:
+        raise ValueError(
+            f"banded kernel needs {plan_bytes / 2**20:.0f}MB of device memory; "
+            f"{device} has {free / 2**20:.0f}MB free. Align fewer pairs per "
+            "call (chunk_pairs) or use a narrower band.")
 
 
 def _power_limit(index: int) -> str | None:
