@@ -57,8 +57,12 @@ Phases (any failure exits non-zero before a result is printed):
    ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
    SW, NW x linear, affine x DNA, BLOSUM62 (fill: x both flavors) at 256
    pairs of 1500 x 1800, band 333 (steps of 2, a partial pointer word, rows
-   padded to the score tile), and the models' defaults (DNA linear SW and NW,
-   BWA-MEM affine SW) on 32 of the long pairs at full length;
+   padded to the score tile); bands too wide for shared memory (8 pairs of
+   16 kbp at band 16000 linear, SW, and at band 4000 affine, NW), whose
+   rows live in device memory; a random 200 x 200 matrix, read through the
+   read-only cache, at 64 pairs of 300 x 360, band 203; and the
+   models' defaults (DNA linear SW and NW, BWA-MEM affine SW) on 32 of the
+   long pairs at full length;
 9. the banded models at full width: ``banded_smith_waterman(band=512)``,
    ``banded_needleman_wunsch(band=512)`` and a banded BWA-MEM affine model,
    ``score`` and ``align`` on 1024 pairs of 16 kbp (each ref a window of the
@@ -125,7 +129,10 @@ INT32_OPS_PER_S = 2 * 128 * 132 * 1.98e9
 #: The fills count from their recurrence (not yet from their cell
 #: loops): linear 16 / 15 (the move priority, its packing and the cleared
 #: value on top of the score's cell), affine 26 / 25 (each extend bit a
-#: compare, a select and an or).
+#: compare, a select and an or). The banded kernels compute the same cell
+#: function over the band's cells and are counted alike: B5 as a score, B6
+#: as a fill; what their scan design does on top (the fold pass, the second
+#: pass's repeated adds) is not work the function needs.
 RECURRENCE_OPS = {"linear": (7, 5), "affine": (11, 9)}
 SUBSTITUTION_OPS = {"dna": 3, "matrix": 1, "profile": 1}
 FILL_OPS = {"linear": (16, 15), "affine": (26, 25)}
@@ -1194,35 +1201,13 @@ LONG_READS, LONG_MIN, LONG_MAX, LONG_JUNK, JUNK_LEN, LONG_SLACK = 256, 12000, 15
 #: HiFi-like errors: substitutions and indels (of 1-3 bp) per base.
 HIFI_SUB, HIFI_INDEL = 0.005, 0.003
 
-#: int32 operations per band cell, (SW, NW), counted from the kernels' cell
-#: loops (csrc/banded.cuh pass_a and scan, the kernels' second pass):
-#: - recurrence, linear: diag and up adds, two maxes, the fold's add and
-#:   max, the second pass's add and max (8); SW adds its running max (9 / 8).
-#:   Affine: diag add; F: two adds, two maxes; T: two maxes; the fold: two
-#:   adds, a max; the second pass: E add and clamp, H max, U two adds and a
-#:   max (16); SW +1 (17 / 16);
-#: - substitution: DNA two range compares, an equality compare and a select
-#:   (4); a matrix a compare, a select and the index add (2);
-#: - the fill (B6) adds: the substitution, diag add (and linear up add)
-#:   again in its second pass; the move (three compares, two selects, the SW
-#:   zero-force compare and select: 7 / 6); packing (shift, or: 2); SW's
-#:   first-win update (a compare, three selects: 4, for the score's max) or
-#:   NW's row capture (1); affine the extend bits (two adds, two compares,
-#:   two selects, two ors: 8).
-BANDED_RECURRENCE = {"linear": (9, 8), "affine": (17, 16)}
-BANDED_SUB = {"dna": 4, "matrix": 2}
-BANDED_FILL_EXTRA = {"linear": (2 + 7 + 2 + 3, 2 + 6 + 2 + 1),
-                     "affine": (1 + 7 + 2 + 3 + 8, 1 + 6 + 2 + 1 + 8)}
-
-
-def banded_ops_per_cell(kind: str, gap: str, scoring: str) -> tuple[int, int]:
-    """(SW, NW) int32 operations per band cell of ``kind`` ("score" or
-    "align")."""
-    sub = BANDED_SUB[scoring]
-    (sw, nw), extra = BANDED_RECURRENCE[gap], BANDED_FILL_EXTRA[gap]
-    if kind == "score":
-        return sub + sw, sub + nw
-    return 2 * sub + sw + extra[0], 2 * sub + nw + extra[1]
+#: Wide bands and a large matrix, held to the plain versions: (label,
+#: pairs, m, n, band, gap, algorithms). Bands this wide keep their rows in
+#: device memory (ops/cuda_banded.rows_in_shared is false), and a matrix of
+#: BANDED_BIG_MATRIX residues (160 KB) is read through the read-only cache.
+BANDED_WIDE = (("dna_default", 8, 16000, 16000, 16000, ("sw",)),
+               ("dna_affine_bwamem", 8, 16000, 16000, 4000, ("nw",)))
+BANDED_BIG_MATRIX, BANDED_BIG_MATRIX_SHAPE = 200, (64, 300, 360, 203)
 
 
 def _all_kernels():
@@ -1348,26 +1333,69 @@ def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, tim
 
 def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
     """Every branch of B5 and B6 against its plain version at BANDED_ODD,
-    and the models' defaults at full length on BANDED_SLICE of the models'
-    pairs. Returns the max abs error per kernel name (0), and the plain
-    versions' times on the slice."""
+    the wide bands of BANDED_WIDE, a BANDED_BIG_MATRIX matrix at
+    BANDED_BIG_MATRIX_SHAPE, and the models' defaults at full length on
+    BANDED_SLICE of the models' pairs. Returns the max abs error per kernel
+    name (0), and the plain versions' times on the slice."""
+    from versalignlib_tpu_torch.ops.banded import band_offsets
+    from versalignlib_tpu_torch.ops.cuda_banded import max_step, rows_in_shared
+    from versalignlib_tpu_torch.params import AlignmentParameters
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
     err: dict[str, int] = {}
-    b, m, n, band = BANDED_ODD
-    for name, params in _param_sets().items():  # every (gap, scoring) branch
-        r_np = codes_for(params, rng, b, m)
-        f_np = codes_for(params, rng, b, n)
-        e = check_banded(f"{name} {b}x{m}x{n} band {band}", r_np, f_np, params, band, dev)
+
+    def checked(params, e):
         for kind in ("banded_score", "banded_align"):
             key = _kernel_name(kind, params)
             err[key] = max(err.get(key, 0), e)
+
+    sets = _param_sets()
+    canon = (TieBreak.DIAG_UP_LEFT,)
+    b, m, n, band = BANDED_ODD
+    for name, params in sets.items():  # every (gap, scoring) branch
+        r_np = codes_for(params, rng, b, m)
+        f_np = codes_for(params, rng, b, n)
+        checked(params, check_banded(f"{name} {b}x{m}x{n} band {band}", r_np, f_np, params,
+                                     band, dev))
         log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} SW, NW (fill: "
             f"both flavors) B={b} {m}x{n} band {band}")
-    sets = _param_sets()
+    # Rows in device memory: bands too wide for a block's shared memory.
+    for name, b, m, n, band, algs in BANDED_WIDE:
+        params = sets[name]
+        if rows_in_shared(band, max_step(band_offsets(m, m, n, band)), params):
+            raise AssertionError(f"band {band} ({name}) keeps its rows in shared memory")
+        t0 = time.perf_counter()
+        checked(params, check_banded(
+            f"{name} {b}x{m}x{n} band {band}", random_codes(rng, b, m), random_codes(rng, b, n),
+            params, band, dev, [Algorithm.SMITH_WATERMAN if a == "sw" else
+                                Algorithm.NEEDLEMAN_WUNSCH for a in algs], canon))
+        log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} "
+            f"{', '.join(a.upper() for a in algs)} B={b} {m}x{n} band {band}, rows in device "
+            f"memory ({time.perf_counter() - t0:.1f} s)")
+    # A 200 x 200 matrix is 160 KB: the kernels read it through the
+    # read-only cache. Codes run past S, which must score 0 and count as
+    # invalid.
+    big = _random_matrix(rng, BANDED_BIG_MATRIX)
+    b, m, n, band = BANDED_BIG_MATRIX_SHAPE
+
+    def big_codes(k, length):
+        return _pad_tail(rng, rng.integers(1, BANDED_BIG_MATRIX + 10,
+                                           size=(k, length)).astype(np.uint8))
+
+    for name, params in (
+            ("random_s200_linear", AlignmentParameters(
+                score_gap_read=-3, score_gap_ref=-2, matrix=big)),
+            ("random_s200_affine", AlignmentParameters(
+                score_gap_read=-1, score_gap_ref=-2, gap_open_read=-3,
+                gap_open_ref=-4, matrix=big))):
+        t0 = time.perf_counter()
+        checked(params, check_banded(f"{name} {b}x{m}x{n} band {band}", big_codes(b, m),
+                                     big_codes(b, n), params, band, dev))
+        log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} SW, NW (fill: "
+            f"both flavors) B={b} {m}x{n} band {band}, matrix through the read-only cache "
+            f"({time.perf_counter() - t0:.1f} s)")
     reads, refs = pairs[0][:BANDED_SLICE], pairs[1][:BANDED_SLICE]
     plain_ms = {}
-    canon = (TieBreak.DIAG_UP_LEFT,)
     # The models' defaults in both algorithms; every other branch SW, on the
     # same pairs (codes 1-5 are residues A, R, N, D, C under BLOSUM62).
     for name, algs in (("dna_default", list(Algorithm)),
@@ -1376,10 +1404,8 @@ def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
                        ("protein_blosum62_linear", [Algorithm.SMITH_WATERMAN])):
         params = sets[name]
         timed = {}
-        e = check_banded(f"{name} slice", reads, refs, params, BAND, dev, algs, canon, timed)
-        for kind in ("banded_score", "banded_align"):
-            key = _kernel_name(kind, params)
-            err[key] = max(err[key], e)
+        checked(params, check_banded(f"{name} slice", reads, refs, params, BAND, dev, algs,
+                                     canon, timed))
         plain_ms[name] = timed
         log(f"[banded] banded_score.cu, banded_align.cu == plain  {name:24s} "
             f"{'SW, NW' if len(algs) == 2 else 'SW'} B={BANDED_SLICE} {BANDED_LEN}x{BANDED_LEN} "
@@ -1583,7 +1609,7 @@ def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
                                                             BAND))
                     nbytes = (b * (m + n) + 4 * m + 4 * b + 4 * b * m * nw_words
                               + (16 * b if key == "sw" else 4 * b * BAND))
-                ops = banded_ops_per_cell("score" if score else "align", gap, scoring)[
+                ops = ops_per_cell("score" if score else "align", gap, scoring)[
                     0 if key == "sw" else 1]
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops * cells / INT32_OPS_PER_S
                 pl = plain_ms[pname].get(("score" if score else "align", key))

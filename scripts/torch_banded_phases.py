@@ -7,7 +7,7 @@ then runs chip_smoke's phases 8-11 on the data they are given there: every
 B5 / B6 branch against its plain version, the banded models on 1024 pairs
 of 16 kbp, ``map_long_reads`` against the 4.64 Mbp genome, and the kernels'
 times; it prints the same log lines and a ``{"kernels": [...]}`` line with
-the B5 and B6 entries. About 3.5 minutes, a quarter of the whole script:
+the B5 and B6 entries. About 3.5-5 minutes, half of the whole script:
 the quick check after an edit of a banded source.
 """
 

@@ -221,12 +221,20 @@ def test_empty_axes_and_device_walk():
 
 
 def test_plans_and_rounds():
-    # 16 kbp at band 512: 64 words a row, 4.1 MB a pair; a round holds 2 GiB
-    # of words but at least four pairs per SM.
+    # 16 kbp at band 512: 64 words a row, 4.1 MB a pair; a round holds at
+    # most 2.25 GiB of words (589 pairs there), in whole waves of four pairs
+    # per SM where a wave fits, and longer pairs get fewer pairs a round,
+    # never more bytes.
     assert cuda_banded.lane_cols(512) == 16 and cuda_banded.lane_cols(333) == 16
     assert cuda_banded.lane_cols(12) == 8 and cuda_banded.lane_cols(257) == 16
+    assert cuda_banded.CHUNK_PTR_BYTES == 9 << 28
     assert cuda_banded.chunk_pairs_for(16000, 512, 132) == 528
-    assert cuda_banded.chunk_pairs_for(16000, 512, 1) == (2 << 30) // (4 * 16000 * 64)
+    assert cuda_banded.chunk_pairs_for(16000, 512, 1) == 588
+    for m, band in ((16000, 512), (100_000, 512), (100_000, 100_000)):
+        pairs = cuda_banded.chunk_pairs_for(m, band, 132)
+        assert pairs * 4 * m * -(-band // 8) <= cuda_banded.CHUNK_PTR_BYTES or pairs == 1
+    assert cuda_banded.chunk_pairs_for(100_000, 512, 132) == 94
+    assert cuda_banded.chunk_pairs_for(100_000, 100_000, 132) == 1
     p = _SETS["dna_linear"][1]
     assert cuda_banded.rows_in_shared(512, 1, p)
     assert not cuda_banded.rows_in_shared(16000, 1, p)
@@ -296,6 +304,9 @@ def test_band_helpers_match_jax():
         np.testing.assert_array_equal(banded.band_offsets(m_pad, m, n, band),
                                       jax_banded.band_offsets(m_pad, m, n, band))
         assert banded.max_band_step(m, n) == jax_banded.max_band_step(m, n)
+        # The offsets' own step, which sizes the kernels' rows, within it.
+        assert plain_banded.max_step(banded.band_offsets(m_pad, m, n, band)) <= \
+            banded.max_band_step(m, n)
     for codes in (np.array([1, 2, 0, 3]), np.array([5, 5, 1]), np.array([0, 1]), np.zeros(0)):
         assert banded.last_valid_pos(codes) == jax_banded.last_valid_pos(codes)
         v = make_validity()

@@ -2,7 +2,8 @@
 with ``==``: minimizers, the chunked index build and chaining array for
 array, the ``MinimizerIndex`` npz in both directions, and
 ``map_long_reads(device="cpu")`` against ``map_long_reads(interpret=True)``
-field by field (tests/test_longread.py:78-93's size)."""
+field by field (tests/test_longread.py:78-93's size), and at the default
+pad and band slack against the JAX path extended by its banded oracle."""
 
 import dataclasses
 
@@ -13,6 +14,7 @@ import torch
 from versalignlib_tpu import longread as jax_longread
 from versalignlib_tpu import seed as jax_seed
 from versalignlib_tpu.alphabet import reverse_complement
+from versalignlib_tpu.ops import banded as jax_banded
 from versalignlib_tpu.params import AlignmentParameters as JaxParams
 from versalignlib_tpu_torch import (AlignmentParameters, MinimizerIndex, build_index,
                                     find_chains, map_long_reads, minimizers)
@@ -79,19 +81,19 @@ def test_find_chains_match_jax():
         assert got == want
 
 
-def test_map_long_reads_matches_jax():
+def _long_reads_case():
+    """tests/test_longread.py:78-93's case: two 350 bp reads, the second
+    reverse-complemented, and one junk read, against 20 kbp."""
     rng = np.random.default_rng(0)
     genome = "".join(rng.choice(_BASES, size=20_000))
     positions = [2_000, 11_000]
     reads = [_mutate(rng, genome[p:p + 350]) for p in positions]
     reads[1] = reverse_complement(reads[1])
     reads.append("".join(rng.choice(_BASES, size=300)))  # unmapped junk
-    # pad=0 and band_slack=32 keep the Pallas interpreter's extension at a
-    # 512-column window (about 35 s instead of 160 s at the defaults).
-    got = map_long_reads(reads, [genome], AlignmentParameters(), pad=0, band_slack=32,
-                         device="cpu")
-    want = jax_longread.map_long_reads(reads, [genome], JaxParams(), pad=0, band_slack=32,
-                                       interpret=True)
+    return genome, positions, reads
+
+
+def _same_hits(got, want):
     for field in ("ref_id", "pos", "strand", "score", "mapq", "chain_score"):
         x, y = getattr(got, field), getattr(want, field)
         assert x.dtype == y.dtype, field
@@ -99,12 +101,43 @@ def test_map_long_reads_matches_jax():
     assert len(got) == 3 and got.alignments[2] is None and want.alignments[2] is None
     for a, b in zip(got.alignments[:2], want.alignments[:2]):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_map_long_reads_matches_jax():
+    genome, positions, reads = _long_reads_case()
+    # pad=0 and band_slack=32 keep the Pallas interpreter's extension at a
+    # 512-column window (about 35 s instead of 160 s at the defaults).
+    got = map_long_reads(reads, [genome], AlignmentParameters(), pad=0, band_slack=32,
+                         device="cpu")
+    want = jax_longread.map_long_reads(reads, [genome], JaxParams(), pad=0, band_slack=32,
+                                       interpret=True)
+    _same_hits(got, want)
     for i, p in enumerate(positions):
         assert abs(int(got.pos[i]) - p) < 40 and int(got.strand[i]) == i
     # A prebuilt index gives the same hits, and the default pad and slack
     # the same starts.
     again = map_long_reads(reads, (build_index([genome]), [genome]), device="cpu")
     np.testing.assert_array_equal(again.pos, got.pos)
+
+
+def test_map_long_reads_defaults_match_jax(monkeypatch):
+    # The default pad (256) and band_slack (128) set the bucket length (1024)
+    # and the bands (192, 256) the path runs with. The Pallas interpreter
+    # takes minutes there, so the JAX side extends through
+    # banded_align_oracle, the definition its banded kernel is held to
+    # (tests/test_banded.py); bucketing, windows and decoding stay its own.
+    genome, _, reads = _long_reads_case()
+    shapes = []
+
+    def oracle_batch(rd, fd, params, algorithm, band, tie=None, interpret=None):
+        shapes.append((rd.shape[1], band))
+        return [jax_banded.banded_align_oracle(r, f, params, band, algorithm, tie=tie)
+                for r, f in zip(rd, fd)]
+
+    monkeypatch.setattr(jax_banded, "banded_align_batch", oracle_batch)
+    want = jax_longread.map_long_reads(reads, [genome], JaxParams())
+    assert sorted(shapes) == [(1024, 192), (1024, 256)]
+    _same_hits(map_long_reads(reads, [genome], AlignmentParameters(), device="cpu"), want)
 
 
 def test_map_long_reads_guards(monkeypatch):

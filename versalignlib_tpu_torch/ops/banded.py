@@ -34,14 +34,18 @@ def band_offsets(m_pad: int, m_real: int, n: int, band: int) -> np.ndarray:
 
 
 def max_band_step(m_real: int, n: int) -> int:
-    """Max per-row band advance D = ceil(n/m) (offsets are monotone)."""
+    """Max per-row band advance D = ceil(n/m) (offsets are monotone): a
+    bound from the shapes alone, kept for the JAX package's API. The kernels
+    and plain versions size their rows by the offsets' own largest step
+    (``plain_banded.max_step``), which never exceeds it."""
     return max(1, -(-n // max(m_real, 1)))
 
 
 def last_valid_pos(codes: np.ndarray, valid=None) -> int:
     """max_*_pos for one sequence: index before the first invalid code, else
     len-1. ``valid``: elementwise validity predicate (default: the canonical
-    flavor, any nonzero code)."""
+    flavor, any nonzero code). Kept for the JAX package's API; the batch
+    paths use ``cuda_align.last_valid_pos``."""
     codes = np.asarray(codes)
     inv = np.flatnonzero(codes == 0 if valid is None else ~valid(codes))
     return int(inv[0]) - 1 if inv.size else codes.size - 1
@@ -101,11 +105,12 @@ def banded_align_batch(
     ``tile`` is accepted for the JAX signature and changes nothing: the
     kernel has no row tiles, and the JAX package's outputs do not depend on
     them. Pairs go through in rounds of ``chunk_pairs`` (default
-    ``cuda_banded.chunk_pairs_for``: 2 GiB of pointer words, at least four
-    pairs per SM); the fill of round k+1 is queued before round k is
-    decoded, and the pointer words come back into two reused page-locked
-    buffers. ``device_walk=True`` asks for the walk on the device, which is
-    not ported yet (ROADMAP A5); None and False walk on the host. Returns a
+    ``cuda_banded.chunk_pairs_for``: at most 2.25 GiB of pointer words, in
+    whole waves of four pairs per SM); the fill of round k+1 is queued
+    before round k is decoded, and the pointer words come back into two
+    page-locked buffers that later calls reuse
+    (``cuda_banded.PINNED.release()`` frees them). ``device_walk=True``
+    asks for the walk on the device, which is not ported yet (ROADMAP A5); None and False walk on the host. Returns a
     list of :class:`Alignment`, or with ``raw=True`` an
     :class:`AlignmentBatch` (``gapped=False``: without the gapped strings).
     """

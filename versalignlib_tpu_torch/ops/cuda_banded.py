@@ -19,6 +19,7 @@ import torch
 
 from versalignlib_tpu_torch.ops import plain_banded
 from versalignlib_tpu_torch.ops._build import CudaKernel
+from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK, max_step
 from versalignlib_tpu_torch.ops.cuda_score import check_codes, matrix_tables
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, TieBreak
@@ -35,7 +36,6 @@ BANDED_SCORE_KERNEL = CudaKernel(
 BANDED_ALIGN_KERNEL = CudaKernel(
     "banded_align.cu", "val_banded_align_launch", [_P] * 10 + [_I] * 16 + [_P])
 
-BAND_PACK = plain_banded.BAND_PACK
 #: Pairs per block (one warp each) and the shared memory a block may take
 #: on an H100 (csrc/banded.cuh kWarps; 227 KB).
 WARPS_PER_BLOCK = 4
@@ -47,13 +47,6 @@ def lane_cols(band: int) -> int:
     """Band columns per lane: the band over 32 lanes, rounded up to whole
     pointer words of 8 codes."""
     return -(-(-(-band // 32)) // BAND_PACK) * BAND_PACK
-
-
-def max_step(offsets: np.ndarray) -> int:
-    """The largest step between consecutive band starts, at least 1 (the
-    tail of -inf each staged row carries)."""
-    offsets = np.asarray(offsets)
-    return max(1, int(np.diff(offsets).max(initial=1)))
 
 
 def _row_words(band: int, d: int, affine: bool) -> int:
@@ -175,30 +168,39 @@ def fill(reads: torch.Tensor, refs: torch.Tensor, offsets: np.ndarray,
     return ptr, best, keep
 
 
-#: Pointer bytes per device round of ``banded_align_batch``: 2 GiB is 520
-#: pairs of 16 kbp at band 512 (4.1 MB each).
-CHUNK_PTR_BYTES = 2 << 30
-#: Warps per SM a round gets at least, memory allowing: one pair per warp,
-#: and four warps per SM keep every SM partition busy.
-MIN_WARPS_PER_SM = 4
+#: Pointer bytes per device round of ``banded_align_batch``, and the most
+#: each of the two page-locked host buffers keeps between calls. 2.25 GiB
+#: is 589 pairs of 16 kbp at band 512 (4.1 MB each), so that a round there
+#: holds a whole wave; longer pairs get fewer per round (94 at 100 kbp),
+#: never more bytes.
+CHUNK_PTR_BYTES = 9 << 28
+#: A wave of the fill: one warp per pair and one warp per SM partition. A
+#: launch takes the time of one wave up to this many pairs per SM, and one
+#: more wave for each part of a wave past it.
+WAVE_PAIRS_PER_SM = 4
 
 
 def chunk_pairs_for(m: int, band: int, sm_count: int) -> int:
     """Pairs per device round: as many as :data:`CHUNK_PTR_BYTES` of pointer
-    words hold, but at least :data:`MIN_WARPS_PER_SM` per SM (528 on an
-    H100): at one pair per warp a smaller round leaves SM partitions idle."""
+    words hold, at least one, and where that is a wave
+    (:data:`WAVE_PAIRS_PER_SM` per SM, 528 on an H100) or more, a whole
+    number of waves."""
     per_pair = 4 * m * -(-band // BAND_PACK)
-    return max(MIN_WARPS_PER_SM * sm_count, CHUNK_PTR_BYTES // max(per_pair, 1))
+    pairs = max(1, CHUNK_PTR_BYTES // max(per_pair, 1))
+    wave = WAVE_PAIRS_PER_SM * sm_count
+    return pairs // wave * wave if pairs >= wave else pairs
 
 
 class PinnedPair:
     """Two page-locked host buffers that the rounds of a banded alignment
     take in turn: the copy of round k+1 lands in one while the host decodes
-    round k from the other. They grow to the largest round asked of them and
-    are kept for the next call, since pinning gigabytes takes longer than
-    the copy it speeds up."""
+    round k from the other. A buffer of up to ``limit`` bytes is kept for
+    the next call, since pinning gigabytes takes longer than the copy it
+    speeds up; a larger one (a caller's own ``chunk_pairs``) serves its call
+    only. :meth:`release` gives the kept buffers back."""
 
-    def __init__(self):
+    def __init__(self, limit: int):
+        self.limit = limit
         self._bufs: list[torch.Tensor | None] = [None, None]
 
     def take(self, slot: int, shape: tuple, dtype=torch.int32) -> torch.Tensor:
@@ -207,9 +209,14 @@ class PinnedPair:
         if buf is None or buf.numel() < nbytes:
             self._bufs[slot] = None   # free the smaller buffer first
             buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
-            self._bufs[slot] = buf
+            if nbytes <= self.limit:
+                self._bufs[slot] = buf
         return buf[:nbytes].view(dtype).view(shape)
 
+    def release(self) -> None:
+        self._bufs = [None, None]
 
-#: The pair of page-locked buffers the banded alignment path reuses.
-PINNED = PinnedPair()
+
+#: The pair of page-locked buffers the banded alignment path reuses, each
+#: kept up to one round's pointer bytes.
+PINNED = PinnedPair(CHUNK_PTR_BYTES)

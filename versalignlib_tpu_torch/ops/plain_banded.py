@@ -33,6 +33,13 @@ from versalignlib_tpu_torch.types import Algorithm, TieBreak
 BAND_PACK = 8
 
 
+def max_step(offsets) -> int:
+    """The largest step between consecutive band starts, at least 1: the
+    tail of -inf each staged row carries, in the plain versions and the
+    kernels alike."""
+    return max(1, int(np.diff(np.asarray(offsets)).max(initial=1)))
+
+
 def _sub_table(params: AlignmentParameters, dev: torch.device) -> torch.Tensor:
     """Substitution scores of every pair of byte codes, read code a against
     ref code c at a * 256 + c: the default DNA table (match / mismatch
@@ -66,7 +73,7 @@ def _band_rows(reads: torch.Tensor, refs: torch.Tensor, offsets,
     b, m = reads.shape
     dev = reads.device
     offs = [int(v) for v in offsets]
-    d = max([1] + [offs[i] - offs[i - 1] for i in range(1, m)])
+    d = max_step(offs)
     affine = params.affine
     table = _sub_table(params, dev)
     read_base = reads.long() * 256
