@@ -1,26 +1,35 @@
-"""Time the score and one-vs-many kernels of several checkouts of the port in
-one process, interleaved.
+"""Time the kernels of several checkouts of the port in one process,
+interleaved.
 
     python3 scripts/torch_kernel_ab.py DIR_A DIR_B [--pairs 10] [--out FILE]
+        [--kernels score.cu search.cu align.cu align_affine.cu]
 
-Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``,
-whose ``score.cu`` and ``search.cu`` must keep this checkout's C interface.
-They are built with the package's nvcc flags into ``build/ab/<i>/`` of this
-checkout and bound in place of the package's own build, so every side runs
-through the same wrappers on the same inputs: scores on 16384 pairs of 512
-x 512 under ``chip_smoke``'s four parameter sets, SW and NW, and the
+Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``.
+Its sources are built with the package's nvcc flags into ``build/ab/<i>/``
+of this checkout and bound in place of the package's own build.
+``score.cu`` and ``search.cu`` must keep this checkout's C interface, and
+every side runs through this checkout's wrappers: scores on 16384 pairs of
+512 x 512 under ``chip_smoke``'s four parameter sets, SW and NW, and the
 one-vs-many kernel at each search path's launch shape
-(``chip_smoke.search_launches``). Each round times every side once
-(CUDA-event median of 7 after a warm-up), the order reversed every other
-round, and every side's outputs must equal the first side's. Prints one
-line per case: each side's median over the rounds and its quartiles, and in
-how many rounds the last side beat the first. Needs a CUDA card and nvcc.
+(``chip_smoke.search_launches``). The pointer fills (``align.cu``,
+``align_affine.cu``) run through each checkout's own wrapper
+(``ops/cuda_align.py`` of that checkout, loaded under a name of its own),
+so the sides may differ in their C interface and in the layout they launch
+on: ``cuda_align.fill`` on 4096 pairs of 512 x 512 under the four
+parameter sets, SW and NW in both flavors, and at each aligning search
+path's align shape (``chip_smoke.search_align_pairs``), SW and NW,
+canonical flavor. Each round times every side once (CUDA-event median of 7
+after a warm-up, wrapper included), the order reversed every other round,
+and every side's outputs must equal the first side's. Prints one line per
+case: each side's median over the rounds and its quartiles, and in how
+many rounds the last side beat the first. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -36,44 +45,84 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from versalignlib_tpu_torch.ops import _build, cuda_score, cuda_search  # noqa: E402
-from versalignlib_tpu_torch.types import Algorithm  # noqa: E402
+from versalignlib_tpu_torch.types import Algorithm, TieBreak  # noqa: E402
 
+#: The sources that run through this checkout's wrappers, and their kernels.
 KERNELS = {"score.cu": cuda_score.SCORE_KERNEL, "search.cu": cuda_search.SEARCH_KERNEL}
+#: The fill sources, and the name of their kernel in each side's wrapper.
+FILLS = {"align.cu": "ALIGN_KERNEL", "align_affine.cu": "AFFINE_KERNEL"}
 
 
-def build(side: int, checkout: pathlib.Path, source: str):
-    """nvcc of one checkout's source; returns its bound C entry."""
+def fill_wrapper(side: int, checkout: pathlib.Path):
+    """The checkout's own ``ops/cuda_align.py``, loaded as a module of its
+    own (it imports the rest of the package from this checkout)."""
+    path = checkout / "versalignlib_tpu_torch" / "ops" / "cuda_align.py"
+    spec = importlib.util.spec_from_file_location(f"_ab_cuda_align_{side}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def build(side: int, checkout: pathlib.Path, source: str, kernel):
+    """nvcc of one checkout's source; returns its C entry, bound with the
+    argument types of ``kernel`` (the ``CudaKernel`` that will launch it)."""
     out_dir = _build.BUILD_DIR / "ab" / str(side)
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / source.replace(".cu", ".so")
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
            str(checkout / "versalignlib_tpu_torch" / "csrc" / source)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
-    kernel = KERNELS[source]
     fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
     fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
     return fn
 
 
-def cases(dev) -> list[tuple[str, str, object]]:
-    """(name, source, call) for every timed case."""
+def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
+    """(name, source, call) for every timed case of ``sources``; call(i)
+    runs side i."""
     rng = np.random.default_rng(0)
     out = []
-    for pname, params in cs._param_sets().items():
-        r = torch.from_numpy(cs.codes_for(params, rng, cs.SCORE_PAIRS, cs.LENGTH)).to(dev)
-        f = torch.from_numpy(cs.codes_for(params, rng, cs.SCORE_PAIRS, cs.LENGTH)).to(dev)
-        for alg in Algorithm:
-            out.append((f"score {pname} {alg.name}", "score.cu",
-                        lambda r=r, f=f, p=params, a=alg:
-                        cuda_score.score_batch_device(r, f, p, a)))
-    for name, (params, queries, pool, kind) in cs.search_launches(cs.make_search_data(rng)).items():
-        q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
-        p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
-        for alg in Algorithm:
-            if kind == "profile" and alg == Algorithm.NEEDLEMAN_WUNSCH:
-                continue
-            out.append((f"search {name} {alg.name}", "search.cu",
-                        cs._search_call(kind, q, p, params, alg)[0]))
+    sets = cs._param_sets()
+    if "score.cu" in sources:
+        for pname, params in sets.items():
+            r = torch.from_numpy(cs.codes_for(params, rng, cs.SCORE_PAIRS, cs.LENGTH)).to(dev)
+            f = torch.from_numpy(cs.codes_for(params, rng, cs.SCORE_PAIRS, cs.LENGTH)).to(dev)
+            for alg in Algorithm:
+                out.append((f"score {pname} {alg.name}", "score.cu",
+                            lambda i, r=r, f=f, p=params, a=alg:
+                            cuda_score.score_batch_device(r, f, p, a)))
+    fills = [(f"{pname} {cs.ALIGN_PAIRS}x{cs.LENGTH}x{cs.LENGTH}", params,
+              cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH),
+              cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH), tuple(TieBreak))
+             for pname, params in sets.items() if cs._fill_source(params) in sources]
+    if "search.cu" in sources or FILLS.keys() & set(sources):
+        data = cs.make_search_data(rng)
+    if "search.cu" in sources:
+        for name, (params, queries, pool, kind) in cs.search_launches(data).items():
+            q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+            p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
+            for alg in Algorithm:
+                if kind == "profile" and alg == Algorithm.NEEDLEMAN_WUNSCH:
+                    continue
+                out.append((f"search {name} {alg.name}", "search.cu",
+                            lambda i, c=cs._search_call(kind, q, p, params, alg)[0]: c()))
+    if FILLS.keys() & set(sources):
+        for name, (params, r_np, f_np) in cs.search_align_pairs(data).items():
+            (b, m), n = r_np.shape, f_np.shape[1]
+            fills.append((f"{name} {b}x{m}x{n}", params, r_np, f_np, (TieBreak.DIAG_UP_LEFT,)))
+    for label, params, r_np, f_np, ties in fills:
+        source = cs._fill_source(params)
+        if source not in sources:
+            continue
+        r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+        f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+        for tie in ties:
+            mrp = torch.from_numpy(wrappers[0].last_valid_pos(r_np, tie, params.matrix)).to(dev)
+            for alg in Algorithm:
+                out.append((f"fill {label} {alg.name} {tie.name}", source,
+                            lambda i, r=r, f=f, mrp=mrp, p=params, a=alg, t=tie:
+                            tuple(x for x in wrappers[i].fill(r, f, mrp, p, a, t)
+                                  if x is not None)))
     return out
 
 
@@ -82,29 +131,41 @@ def main() -> int:
     ap.add_argument("checkouts", nargs="+", type=pathlib.Path)
     ap.add_argument("--pairs", type=int, default=10, help="rounds of every side")
     ap.add_argument("--out", type=pathlib.Path, help="write every round's times here (JSON)")
+    ap.add_argument("--kernels", nargs="+", default=[*KERNELS, *FILLS],
+                    choices=[*KERNELS, *FILLS], help="the sources to time")
     args = ap.parse_args()
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
-    jobs = [(i, c.resolve(), s) for i, c in enumerate(args.checkouts) for s in KERNELS]
+    checkouts = [c.resolve() for c in args.checkouts]
+    wrappers = [fill_wrapper(i, c) for i, c in enumerate(checkouts)]
+
+    def kernel_of(i, source):
+        return getattr(wrappers[i], FILLS[source]) if source in FILLS else KERNELS[source]
+
+    jobs = [(i, c, s, kernel_of(i, s)) for i, c in enumerate(checkouts) for s in args.kernels]
     with ThreadPoolExecutor(len(jobs)) as ex:
-        fns = dict(zip([(i, s) for i, _, s in jobs], ex.map(lambda j: build(*j), jobs)))
-    sides = range(len(args.checkouts))
+        fns = dict(zip([(i, s) for i, _, s, _ in jobs], ex.map(lambda j: build(*j), jobs)))
+    for (i, source), fn in fns.items():
+        if source in FILLS:
+            kernel_of(i, source)._fn = fn
+    sides = range(len(checkouts))
     results = {}
-    for name, source, call in cases(torch.device("cuda", 0)):
-        kernel = KERNELS[source]
+    for name, source, call in cases(torch.device("cuda", 0), args.kernels, wrappers):
         times = {i: [] for i in sides}
         want = None
         for rnd in range(args.pairs):
             for i in (sides if rnd % 2 == 0 else reversed(sides)):
-                kernel._fn = fns[i, source]
-                got = call()
+                kernel_of(i, source)._fn = fns[i, source]
+                got = call(i)
                 got = got if isinstance(got, tuple) else (got,)
                 if want is None:
                     want = got
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                if len(got) != len(want) or \
+                        not all(torch.equal(g, w) for g, w in zip(got, want)):
                     raise AssertionError(f"{name}: side {i} differs from side 0")
-                times[i].append(cs.time_cuda(call)["median"])
-        kernel._fn = None
+                times[i].append(cs.time_cuda(lambda: call(i))["median"])
+        if source in KERNELS:
+            KERNELS[source]._fn = None
         wins = sum(b < a for a, b in zip(times[0], times[len(sides) - 1]))
         summary = []
         for i in sides:

@@ -1,16 +1,18 @@
 """Instruction mix of the port's compiled CUDA kernels.
 
-    python3 scripts/torch_sass_mix.py [--rows 16]
+    python3 scripts/torch_sass_mix.py [--rows 16] [SOURCE ...]
 
 Builds ``versalignlib_tpu_torch/csrc/*.cu`` (as the package does at first
 use), disassembles each library with ``cuobjdump -sass`` and prints, per
 kernel instantiation, one JSON line with its instruction count, the count of
 each opcode (modifiers dropped: ``IMNMX.S32`` counts as ``IMNMX``), and its
 hot loop: the longest loop with no loop inside it (a backward branch and
-its target), which in every kernel here is the column loop of a sweep of
-``--rows`` read rows (``common.cuh``, kRows): two columns per iteration in
-``score.cu`` and ``search.cu``, one pointer word (16 columns, 8 with affine
-gaps) in the fills. For that loop it gives the opcodes, the instructions
+its target). In ``score.cu`` and ``search.cu`` that is the column loop of
+a sweep of ``--rows`` read rows (``common.cuh``, kRows), two columns per
+iteration; in the fills it is a stripe's step loop (``fill.cuh``), one row
+of a lane's 16 columns per iteration, whose body also holds the rarely
+taken SW argmax search and NW row-mrp code, so its count per cell is an
+upper bound. For that loop it gives the opcodes, the instructions
 per cell (loop instructions / rows / columns) and their split by the pipe
 that issues them, as the Nsight Compute profiling guide
 describes the pipes: ``fma`` takes IMAD and IMUL (and FP32), ``alu`` the
@@ -33,12 +35,13 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from versalignlib_tpu_torch.ops import _build  # noqa: E402
-from versalignlib_tpu_torch.ops.plain import AFFINE_PACK, PACK  # noqa: E402
 
-#: DP columns per hot-loop iteration of each source: a pointer word in the
-#: fills, an even and an odd column in the shared score loop (common.cuh,
-#: score_sweep).
-COLUMNS = {"align.cu": PACK, "align_affine.cu": AFFINE_PACK, "score.cu": 2, "search.cu": 2}
+#: DP columns per hot-loop iteration of each source: a lane's 16 columns in
+#: the fills (fill.cuh, kCols), an even and an odd column in the shared
+#: score loop (common.cuh, score_sweep); and the read rows of the fills'
+#: iteration (the score loops take ``--rows``).
+COLUMNS = {"align.cu": 16, "align_affine.cu": 16, "score.cu": 2, "search.cu": 2}
+ROWS = {"align.cu": 1, "align_affine.cu": 1}
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(
@@ -89,10 +92,11 @@ def hot_loop(insns: list[tuple[int, str, str]], rows: int, cols: int = 1) -> dic
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=16,
-                    help="read rows per sweep (common.cuh kRows)")
+                    help="read rows per sweep of the score loops (common.cuh kRows)")
+    ap.add_argument("sources", nargs="*", help="csrc sources (default: all)")
     args = ap.parse_args()
     cuobjdump = shutil.which("cuobjdump") or str(_build.DEFAULT_NVCC.with_name("cuobjdump"))
-    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    sources = args.sources or sorted(p.name for p in _build.CSRC.glob("*.cu"))
     _build.build(sources)
     for source in sources:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(source))],
@@ -106,7 +110,8 @@ def main() -> int:
                     print(json.dumps({"source": source, "function": func,
                                       "instructions": len(insns),
                                       "opcodes": dict(mix.most_common()),
-                                      "hot_loop": hot_loop(insns, args.rows,
+                                      "hot_loop": hot_loop(insns,
+                                                           ROWS.get(source, args.rows),
                                                            COLUMNS.get(source, 1))}))
                 func, insns = m.group(1), []
                 continue

@@ -149,16 +149,21 @@ def test_engine_affine_slice_matches_gotoh_and_xla(tie):
 
 def test_affine_chunks_at_pack_8():
     # 4 bytes per 8 cells: 4096 pairs of 512 x 512 are 512 MiB of pointer
-    # words, twice the chunk budget, yet one warp per SM on 132 SMs is 4224
-    # pairs, so the main path's 4096 pairs still fill in one chunk.
+    # words, twice the chunk budget of 2048 pairs; 16 warps (one pair each)
+    # on each of 132 SMs are 2112 pairs, so the main path's 4096 pairs fill
+    # in two chunks.
     assert 4096 * 512 * 64 * 4 == 2 * cuda_align.CHUNK_PTR_BYTES
-    assert cuda_align.chunk_pairs_for(512, 512, 132, cuda_align.AFFINE_PACK) == 4224
+    assert cuda_align.chunk_pairs_for(512, 512, 132, cuda_align.AFFINE_PACK) == 2112
     assert cuda_align.chunk_pairs_for(512, 512, 1, cuda_align.AFFINE_PACK) == 2048
     assert cuda_align.chunk_pairs_for(512, 512, 1) == 4096
     linear = cuda_align.align_mem_plan(512, 509, 32)
     affine = cuda_align.align_mem_plan(512, 509, 32, affine=True)
-    # 64 words of 8 codes instead of 32 of 16 per row, and the F row.
-    assert affine - linear == 32 * (4 * 512 * (64 - 32) + 4 * 509)
+    # 64 words of 8 codes instead of 32 of 16 per row; one stripe, so no
+    # boundary columns (H, and E when affine).
+    assert affine - linear == 32 * (4 * 512 * (64 - 32))
+    wide = cuda_align.align_mem_plan(512, 1100, 32, affine=True)
+    assert wide - cuda_align.align_mem_plan(512, 1100, 32) == \
+        32 * (4 * 512 * (138 - 69) + 4 * 2 * 512)
 
     # Several chunks, the next dispatched before the previous is decoded,
     # give what one chunk gives.

@@ -95,7 +95,41 @@ def test_pack_words_layout():
 def test_chunk_pairs_follow_the_memory_budget():
     assert cuda_align.chunk_pairs_for(512, 512, 1) == 4096
     assert 4096 * 512 * 32 * 4 == cuda_align.CHUNK_PTR_BYTES
-    # never fewer than one warp of 32 pairs per SM
-    assert cuda_align.chunk_pairs_for(512, 512, 132) == 32 * 132
-    assert cuda_align.chunk_pairs_for(100000, 100000, 1) == 32
-    assert cuda_align.chunk_pairs_for(150, 509, 132) % 32 == 0
+    # never fewer than 16 warps (one pair each) per SM
+    assert cuda_align.chunk_pairs_for(512, 512, 132) == 4096
+    assert cuda_align.chunk_pairs_for(100000, 100000, 1) == 16
+    assert cuda_align.chunk_pairs_for(100000, 100000, 132) == 16 * 132
+    assert cuda_align.chunk_pairs_for(150, 509, 132) % cuda_align.FILL_WARPS == 0
+    # Past one stripe of 512 columns, two boundary columns of H per pair.
+    assert cuda_align.align_mem_plan(150, 1536, 8) - cuda_align.align_mem_plan(150, 512, 8) \
+        == 8 * (1024 + 4 * 150 * (96 - 32) + 4 * 1024 + 4 * 2 * 150)
+
+
+def test_large_dna_scores_fill_as_their_matrix():
+    # DNA scores past the fills' byte tables go to the kernel as the 6 x 6
+    # matrix; under it the plain fill gives the same words, aux and hsel.
+    from versalignlib_tpu_torch.alphabet import base_score_matrix
+    from versalignlib_tpu_torch.params import AlignmentParameters
+
+    assert cuda_align.dna_fits_bytes(DEFAULT_PARAMETERS)
+    assert cuda_align.dna_fits_bytes(AlignmentParameters(score_match=31, score_mismatch=-32))
+    assert not cuda_align.dna_fits_bytes(AlignmentParameters(score_match=32))
+    assert not cuda_align.dna_fits_bytes(AlignmentParameters(score_mismatch=-33))
+    rng = np.random.default_rng(9)
+    reads = torch.from_numpy(random_codes(rng, B, M, padded=True, n_prob=0.1))
+    refs = torch.from_numpy(random_codes(rng, B, 23, padded=True, n_prob=0.1))
+    for gaps in ({"score_gap_read": -50, "score_gap_ref": -45},
+                 {"score_gap_read": -10, "score_gap_ref": -15, "gap_open_read": -60,
+                  "gap_open_ref": -50}):
+        dna = AlignmentParameters(score_match=40, score_mismatch=-35, **gaps)
+        as_matrix = AlignmentParameters(score_match=40, score_mismatch=-35, **gaps,
+                                        matrix=tuple(map(tuple, base_score_matrix(40, -35).tolist())))
+        fill = plain.align_affine_batch if dna.affine else plain.align_batch
+        for tie in TieBreak:
+            mrp = torch.from_numpy(cuda_align.last_valid_pos(reads.numpy(), tie))
+            for alg in Algorithm:
+                for got, want in zip(fill(reads, refs, mrp, as_matrix, alg, tie),
+                                     fill(reads, refs, mrp, dna, alg, tie)):
+                    assert (got is None) == (want is None)
+                    if got is not None:
+                        assert torch.equal(got, want), (gaps, tie, alg)

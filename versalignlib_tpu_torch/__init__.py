@@ -17,7 +17,8 @@ numpy and the standard library, never ``jax`` or ``versalignlib_tpu``.
 
 from versalignlib_tpu_torch import models
 from versalignlib_tpu_torch.alphabet import decode, encode, pad_and_encode
-from versalignlib_tpu_torch.dispatch import AlignmentEngine
+from versalignlib_tpu_torch.dispatch import (AlignmentEngine, available_backends, get_backend,
+                                             register_backend)
 from versalignlib_tpu_torch.longread import LongReadHits, find_chains, map_long_reads
 from versalignlib_tpu_torch.ops.banded import banded_align_batch, banded_score_batch
 from versalignlib_tpu_torch.ops.pssm import (ProfileHit, calibrate_profile, pack_pssm,
@@ -36,16 +37,22 @@ from versalignlib_tpu_torch.stats import (ROBINSON_FREQS, GumbelCalibration, cal
                                           calibrate_islands, karlin_lambda)
 from versalignlib_tpu_torch.translate import (TranslatedHits, calibrate_translated,
                                               translate_six_frames, translated_search)
-from versalignlib_tpu_torch.types import Algorithm, Alignment, AlignmentBatch, TieBreak
+from versalignlib_tpu_torch.types import Algorithm, Alignment, AlignmentBatch, AlignMode, TieBreak
+
+__version__ = "0.1.0"
 
 __all__ = [
     "AlignmentEngine",
+    "get_backend",
+    "register_backend",
+    "available_backends",
     "AlignmentParameters",
     "DEFAULT_PARAMETERS",
     "Algorithm",
     "TieBreak",
     "Alignment",
     "AlignmentBatch",
+    "AlignMode",
     "params_from_reference",
     "encode",
     "decode",
@@ -83,4 +90,5 @@ __all__ = [
     "MinimizerIndex",
     "minimizers",
     "find_chains",
+    "__version__",
 ]

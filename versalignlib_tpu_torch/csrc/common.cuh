@@ -1,11 +1,10 @@
-// Pieces shared by the kernels of this directory (score.cu, align.cu,
-// align_affine.cu, search.cu): the launch shape, where an S x S matrix lives
-// and how a cell looks it up, the walk over read rows in sweeps, the walk
-// over columns in pointer words and the store of those words, the SW argmax
-// fold and the aux word, the best-score recurrence of score.cu and
-// search.cu, and the host-side choice of template instantiation. The fills
-// keep their own recurrence and per-row state; the score kernels keep only
-// how a cell finds its substitution score.
+// Pieces shared by the kernels of this directory: for score.cu, align.cu,
+// align_affine.cu and search.cu, where an S x S matrix lives and how a cell
+// looks it up, and the host-side choice of template instantiation; for
+// score.cu and search.cu, the launch shape, the walk over read rows in
+// sweeps, the SW argmax fold and their best-score recurrence, of which they
+// keep only how a cell finds its substitution score. The pointer fills keep
+// their wavefront in fill.cuh.
 
 #pragma once
 
@@ -64,53 +63,10 @@ __device__ __forceinline__ void for_sweeps(int m, Sweep &&sweep) {
   for (; i0 < m; ++i0) sweep(std::integral_constant<int, 1>{}, i0);
 }
 
-// Runs step(j, u) over the n ref columns, u the field of column j in its
-// pointer word of kPack fields, and store(w, fill) once word w holds its
-// `fill` fields (kPack, or fewer in a partial last word).
-template <int kPack, typename Step, typename Store>
-__device__ __forceinline__ void for_words(int n, Step &&step, Store &&store) {
-  const int full = n / kPack;
-  for (int w = 0; w < full; ++w) {
-#pragma unroll
-    for (int u = 0; u < kPack; ++u) step(w * kPack + u, u);
-    store(w, kPack);
-  }
-  const int fill = n - full * kPack;
-  if (fill) {
-    for (int u = 0; u < fill; ++u) step(full * kPack + u, u);
-    store(full, fill);
-  }
-}
-
-// Stores the R words of a sweep (kBits-bit fields, 32 / kBits per word) at
-// word w of each row of `prow` (row stride nc) and clears them. Canonical
-// flavor: the 2-bit move priority in the low bits of each field becomes its
-// stored code (START 3->0, DIAG 2->3, UP 1->1, LEFT 0->2), the field's other
-// bits (the Gotoh extend bits) stay, and the unfilled fields of a partial
-// word, which would read LEFT, are zeroed to START.
-template <int R, int kBits, bool kCanon>
-__device__ __forceinline__ void store_words(uint32_t (&word)[R], int32_t *prow,
-                                            int nc, int w, int fill) {
-  constexpr int kPack = 32 / kBits;
-  // Bit 0 of every field, and the bits above a field's 2-bit priority.
-  constexpr uint32_t even = 0xFFFFFFFFu / ((1u << kBits) - 1u);
-  constexpr uint32_t keep = ~(even | (even << 1));
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    uint32_t v = word[r];
-    if (kCanon) {
-      v = (v & keep) | ((~v & even) << 1) | (((v >> 1) ^ v) & even);
-      if (fill < kPack) v &= (1u << (kBits * fill)) - 1u;
-    }
-    prow[(size_t)r * nc + w] = static_cast<int32_t>(v);
-    word[r] = 0;
-  }
-}
-
-// The pair's result of a pointer fill: SW folds each sweep's row maxima in
-// row order with strict first-win; NW takes row mrp's argmax.
+// The pair's SW argmax: each sweep's row maxima folded in row order with
+// strict first-win.
 struct FillResult {
-  int best = 0, row = 0, col = 0, nw_arg = 0;
+  int best = 0, row = 0, col = 0;
 
   template <int R>
   __device__ __forceinline__ void fold_rows(const int (&best_r)[R],
@@ -123,15 +79,6 @@ struct FillResult {
         col = arg_r[r];
       }
     }
-  }
-
-  // aux (4,): SW [max, argmax_row, argmax_col, 0] (best in the shifted
-  // domain); NW [argmax of row mrp, 0, 0, 0].
-  __device__ __forceinline__ void write_aux(int32_t *aux, bool local) const {
-    aux[0] = local ? best >> 2 : nw_arg;
-    aux[1] = local ? row : 0;
-    aux[2] = local ? col : 0;
-    aux[3] = 0;
   }
 };
 

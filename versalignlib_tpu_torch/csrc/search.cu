@@ -95,8 +95,9 @@ struct ProfileSub {
   __device__ int score(int ro, int co) const { return lookup<kTab>(prof, ro + co); }
 };
 
+// One (query, pool sequence) pair per thread.
 template <bool kLocal, bool kAffine, bool kCoords, int kTab>
-__global__ void __launch_bounds__(kThreads) search_kernel(SearchArgs a) {
+__device__ __forceinline__ void search_pair(const SearchArgs &a) {
   extern __shared__ int32_t smem[];
   const int k = a.k0 + blockIdx.y;
   const int qlen = a.query_is_read ? a.m : a.n;
@@ -122,21 +123,51 @@ __global__ void __launch_bounds__(kThreads) search_kernel(SearchArgs a) {
   }
 }
 
+// Where ptxas, given the block size alone, spilled (8-28 bytes: SW linear
+// with either table, SW affine with the shared table, SW affine with
+// coordinates through the read-only cache), a least number of blocks per
+// SM lets it keep everything in registers: 80, 95 and 161 registers where
+// it had used 72, 80 and 128 (the fewest that spill nothing, chip_smoke's
+// register report). Every other instantiation keeps the block size alone.
+template <bool kLocal, bool kAffine, bool kCoords, int kTab>
+constexpr int kMinBlocks = !kLocal ? 0
+                           : !kAffine ? (kCoords ? 0 : 6)
+                           : kCoords ? (kTab == 2 ? 3 : 0)
+                           : (kTab == 1 ? 5 : 0);
+
+template <bool kLocal, bool kAffine, bool kCoords, int kTab>
+__global__ void __launch_bounds__(kThreads) search_kernel(SearchArgs a) {
+  search_pair<kLocal, kAffine, kCoords, kTab>(a);
+}
+
+template <bool kLocal, bool kAffine, bool kCoords, int kTab, int kMin>
+__global__ void __launch_bounds__(kThreads, kMin) search_min_kernel(SearchArgs a) {
+  search_pair<kLocal, kAffine, kCoords, kTab>(a);
+}
+
+// The kernel of one instantiation.
+template <bool kLocal, bool kAffine, bool kCoords, int kTab>
+constexpr auto kernel_of() {
+  constexpr int kMin = kMinBlocks<kLocal, kAffine, kCoords, kTab>;
+  if constexpr (kMin == 0) return search_kernel<kLocal, kAffine, kCoords, kTab>;
+  else return search_min_kernel<kLocal, kAffine, kCoords, kTab, kMin>;
+}
+
 // Launches one instantiation over the k queries, kMaxGridY at a time;
 // returns the first CUDA error.
 template <bool kLocal, bool kAffine, bool kCoords, int kTab>
 cudaError_t launch(SearchArgs a, size_t smem, cudaStream_t stream) {
+  const auto kernel = kernel_of<kLocal, kAffine, kCoords, kTab>();
   if (smem > kDefaultSmemBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
-        search_kernel<kLocal, kAffine, kCoords, kTab>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   for (int k0 = 0; k0 < a.k; k0 += kMaxGridY) {
     a.k0 = k0;
     const int ky = a.k - k0 < kMaxGridY ? a.k - k0 : kMaxGridY;
     const dim3 grid((a.r + kThreads - 1) / kThreads, ky);
-    search_kernel<kLocal, kAffine, kCoords, kTab><<<grid, kThreads, smem, stream>>>(a);
+    kernel<<<grid, kThreads, smem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -18,16 +18,17 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from versalignlib_tpu_torch.alphabet import make_validity
+from versalignlib_tpu_torch.alphabet import base_score_matrix, make_validity, valid_code_mask
 from versalignlib_tpu_torch.native import decode_batch_native
 from versalignlib_tpu_torch.ops import plain
 from versalignlib_tpu_torch.ops import traceback as tb
 from versalignlib_tpu_torch.ops._build import CudaKernel
-from versalignlib_tpu_torch.ops.cuda_score import check_codes, matrix_tables
+from versalignlib_tpu_torch.ops.cuda_score import check_codes
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, AlignmentBatch, TieBreak
 
@@ -36,37 +37,77 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: The linear pointer-fill kernel; ``ALIGN_KERNEL.launches`` counts its
 #: launches.
 ALIGN_KERNEL = CudaKernel(
-    "align.cu", "val_align_launch", [_P] * 9 + [_I] * 10 + [_P])
+    "align.cu", "val_align_launch", [_P] * 8 + [_I] * 10 + [_P])
 
 #: The affine (Gotoh) pointer-fill kernel, with its own launch count.
 AFFINE_KERNEL = CudaKernel(
-    "align_affine.cu", "val_align_affine_launch", [_P] * 10 + [_I] * 12 + [_P])
+    "align_affine.cu", "val_align_affine_launch", [_P] * 8 + [_I] * 12 + [_P])
 
 PACK = plain.PACK
 AFFINE_PACK = plain.AFFINE_PACK
+
+#: The fills' launch (``csrc/fill.cuh``): one warp per pair, FILL_WARPS
+#: pairs a block, each lane 16 columns of a stripe of STRIPE ref columns.
+FILL_WARPS = 4
+STRIPE = 512
 
 #: Packed pointer bytes per chunk: 256 MiB is 4096 pairs at 512 x 512 with
 #: 2-bit codes.
 CHUNK_PTR_BYTES = 256 << 20
 
+#: Warps per SM that a fill launch must reach: four on each of an SM's four
+#: schedulers, so that one warp's dependent instructions never leave a
+#: scheduler idle.
+MIN_WARPS_PER_SM = 16
+
+
+def edge_words(affine: bool) -> int:
+    """int32 values per row of a pair's boundary column between stripes:
+    H, and E with affine gaps."""
+    return 2 if affine else 1
+
 
 def align_mem_plan(m: int, n: int, batch: int, affine: bool = False) -> int:
     """Device bytes the fill allocates for ``batch`` pairs of m x n: the
-    codes and their pair-interleaved copies, mrp, the (n, B) H row (and F
-    row when affine), the packed pointers (16 codes per word, 8 when
-    affine), aux and hsel."""
+    codes, mrp, the two boundary columns between stripes (only past one
+    stripe of :data:`STRIPE` columns), the packed pointers (16 codes per
+    word, 8 when affine), aux and hsel."""
     nc = -(-n // (AFFINE_PACK if affine else PACK))
-    rows = 2 if affine else 1
-    return batch * (2 * (m + n) + 4 + 4 * n * rows + 4 * m * nc + 16 + 4 * (n + 1))
+    edge = 2 * m * edge_words(affine) if n > STRIPE else 0
+    return batch * ((m + n) + 4 + 4 * edge + 4 * m * nc + 16 + 4 * (n + 1))
 
 
 def chunk_pairs_for(m: int, n: int, sm_count: int, pack: int = PACK) -> int:
     """Pairs per device round: as many as :data:`CHUNK_PTR_BYTES` of packed
-    pointers (``pack`` codes per word) hold, in whole warps of 32, but never
-    fewer than one warp per SM: the kernels run one thread per pair, and a
-    smaller launch leaves SMs idle for the same time (PERF.md)."""
+    pointers (``pack`` codes per word) hold, in whole blocks of
+    :data:`FILL_WARPS` pairs, but never fewer than
+    :data:`MIN_WARPS_PER_SM` warps (pairs) per SM: a smaller launch leaves
+    schedulers without a warp to issue from for the same time."""
     per_pair = 4 * m * -(-n // pack)
-    return max(32 * sm_count, CHUNK_PTR_BYTES // per_pair // 32 * 32)
+    return max(MIN_WARPS_PER_SM * sm_count,
+               CHUNK_PTR_BYTES // per_pair // FILL_WARPS * FILL_WARPS)
+
+
+def dna_fits_bytes(params: AlignmentParameters) -> bool:
+    """Whether the default DNA scores, shifted << 2 with a priority of up
+    to 3, fit the fills' signed byte tables (``csrc/fill.cuh``, ``Sub``);
+    larger ones go to the kernel as their 6 x 6 matrix, with the same
+    scores and validity."""
+    return all(-128 <= 4 * v and 4 * v + 3 <= 127
+               for v in (params.score_match, params.score_mismatch))
+
+
+@functools.lru_cache(maxsize=None)
+def fill_table(matrix: tuple, canonical: bool, device: torch.device) -> torch.Tensor:
+    """The fills' copy of an S x S ``matrix`` on ``device``: int32, shifted
+    << 2, and for the SSE flavor with the DIAG priority added, 3 where both
+    codes are valid (``valid_code_mask``), else 0 (``csrc/fill.cuh``,
+    ``Sub``). Kept per (matrix, flavor, device)."""
+    table = torch.tensor(matrix, dtype=torch.int32) << 2
+    if not canonical:
+        valid = torch.from_numpy(valid_code_mask(matrix))
+        table += 3 * (valid[:, None] & valid[None, :]).to(torch.int32)
+    return table.to(device)
 
 
 def last_valid_pos(codes: np.ndarray, tie: TieBreak, matrix=None) -> np.ndarray:
@@ -97,25 +138,27 @@ def _launch_fill(reads, refs, mrp, params, algorithm, tie):
     hsel = None if local else torch.empty((b, n + 1), dtype=torch.int32, device=dev)
     if b == 0:
         return ptr, aux, hsel
-    reads_t = reads.t().contiguous()
-    refs_t = refs.t().contiguous()
+    reads = reads.contiguous()
+    refs = refs.contiguous()
     mrp = mrp.contiguous()
-    scratch = [torch.empty((n, b), dtype=torch.int32, device=dev)
-               for _ in range(2 if affine else 1)]
-    table = valid = None
-    if params.matrix is not None:
-        table, valid = matrix_tables(params.matrix, 2, dev)
+    edge = (torch.empty((b, 2, m, edge_words(affine)), dtype=torch.int32, device=dev)
+            if n > STRIPE else None)
+    canonical = TieBreak(tie) == TieBreak.DIAG_UP_LEFT
+    matrix, s = params.matrix, params.sub_size
+    if matrix is None and not dna_fits_bytes(params):
+        matrix = tuple(map(tuple, base_score_matrix(params.score_match,
+                                                    params.score_mismatch).tolist()))
+    table = None if matrix is None else fill_table(matrix, canonical, dev)
     gaps = [params.score_gap_read, params.score_gap_ref]
     if affine:
         gaps += [params.gap_open_read, params.gap_open_ref]
     kernel.launch(
-        reads_t.data_ptr(), refs_t.data_ptr(), mrp.data_ptr(),
-        *(x.data_ptr() for x in scratch),
-        ptr.data_ptr(), aux.data_ptr(), None if hsel is None else hsel.data_ptr(),
+        reads.data_ptr(), refs.data_ptr(), mrp.data_ptr(),
+        None if edge is None else edge.data_ptr(), ptr.data_ptr(), aux.data_ptr(),
+        None if hsel is None else hsel.data_ptr(),
         None if table is None else table.data_ptr(),
-        None if valid is None else valid.data_ptr(),
-        b, m, n, params.sub_size, params.score_match, params.score_mismatch,
-        *gaps, int(local), int(TieBreak(tie) == TieBreak.DIAG_UP_LEFT),
+        b, m, n, s, params.score_match, params.score_mismatch,
+        *gaps, int(local), int(canonical),
         torch.cuda.current_stream(dev).cuda_stream)
     return ptr, aux, hsel
 

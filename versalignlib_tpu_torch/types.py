@@ -1,5 +1,5 @@
 """Result types and algorithm enums (the port's copy of
-``versalignlib_tpu/types.py``, limited to what the alignment path uses).
+``versalignlib_tpu/types.py``).
 
 ``Alignment`` is the analogue of the reference's ``Alignment`` struct
 (AlignmentKernel.h:12-24): two gapped strings plus start/end indices, with
@@ -49,6 +49,14 @@ class Trace(enum.IntEnum):
     UP = 1     # consume read base against a gap in ref (cost score_gap_ref)
     LEFT = 2   # consume ref base against a gap in read (cost score_gap_read)
     DIAG = 3   # consume both (cost match/mismatch)
+
+
+class AlignMode(enum.Enum):
+    """Score-only vs full traceback (the reference's two AlignmentKernel
+    virtuals, AlignmentKernel.h:40-43)."""
+
+    SCORE = "score"
+    ALIGN = "align"
 
 
 @dataclasses.dataclass
@@ -118,6 +126,58 @@ class AlignmentBatch:
 
     def __iter__(self):
         return (self[k] for k in range(len(self)))
+
+    def slice(self, lo: int, hi: int) -> "AlignmentBatch":
+        """Rows [lo, hi) as a view of the same columns (numpy slicing)."""
+        gapped = self.read_gapped is not None
+        return AlignmentBatch(
+            self.read_gapped[lo:hi] if gapped else None,
+            self.ref_gapped[lo:hi] if gapped else None,
+            self.cigar[lo:hi], self.meta[lo:hi])
+
+    def to_json_rows(self) -> list[dict]:
+        """One dict per pair straight from the columns: score, CIGAR and
+        coordinates, plus the gapped strings unless the batch is
+        CIGAR-only. The meta block converts in one ``tolist()``; the byte
+        columns decode row by row (their lengths vary)."""
+        gapped = self.read_gapped is not None
+        meta_l = self.meta.tolist()
+        cig_b = self.cigar.tobytes()
+        ccap = self.cigar.shape[1]
+        if gapped:
+            rg_b = self.read_gapped.tobytes()
+            fg_b = self.ref_gapped.tobytes()
+            acap = self.read_gapped.shape[1]
+        rows = []
+        for k, (score, rs, re_, fs, fe, aln_len, _bs, clen) in enumerate(meta_l):
+            row = {"score": score,
+                   "cigar": cig_b[k * ccap:k * ccap + clen].decode("ascii"),
+                   "read_start": rs, "read_end": re_,
+                   "ref_start": fs, "ref_end": fe}
+            if gapped:
+                o = k * acap
+                row["read"] = rg_b[o:o + aln_len].decode("latin-1")
+                row["ref"] = fg_b[o:o + aln_len].decode("latin-1")
+            rows.append(row)
+        return rows
+
+    def write_to(self, fileobj, compat: bool = False) -> None:
+        """Write the alignments as text: with ``compat`` the reference's
+        read line, ref line and a blank line (main.cpp:146-153), else read,
+        ref and ``cigar<TAB>score``. A CIGAR-only batch raises."""
+        if self.read_gapped is None:
+            raise ValueError("CIGAR-only AlignmentBatch cannot write gapped "
+                             "text; decode with gapped=True for display output")
+        rg, fg, cg, meta = self.read_gapped, self.ref_gapped, self.cigar, self.meta
+        for k in range(len(self)):
+            aln_len = int(meta[k, 5])
+            r = rg[k, :aln_len].tobytes().decode("latin-1")
+            f = fg[k, :aln_len].tobytes().decode("latin-1")
+            if compat:
+                fileobj.write(f"{r}\n{f}\n\n")
+            else:
+                c = cg[k, :int(meta[k, 7])].tobytes().decode("ascii")
+                fileobj.write(f"{r}\n{f}\n{c}\t{int(meta[k, 0])}\n")
 
     @staticmethod
     def concat(batches: list["AlignmentBatch"]) -> "AlignmentBatch":
