@@ -18,7 +18,8 @@ Phases (any failure exits non-zero before a result is printed):
    of ``versalignlib_tpu_torch/csrc`` (one nvcc per source, in parallel) and
    print each instantiation's registers and spills (a spill in the fills or
    in the one-vs-many kernel fails the run), and the fills' launch geometry
-   at 4096 pairs;
+   at 4096 pairs (the one-vs-many kernel's at each search launch, with its
+   memory plan, once the search data is made: ``search_geometry``);
 2. every branch of every kernel against its plain PyTorch version on the
    card, with ``==`` (tolerance 0: every output is an integer): at the main
    path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
@@ -45,8 +46,12 @@ Phases (any failure exits non-zero before a result is printed):
    ``==``: at each search path's launch shape, on a slice of its queries at
    the full pool size; at odd shapes (m, n not multiples of 16) in both
    orientations with codes past S; and with profiles of 100 KB (shared
-   memory past the 48 KB default) and 250 KB (read-only cache). Then the
-   fill kernel of each aligning search path against its plain version at
+   memory past the 48 KB default) and 250 KB (read-only cache); at the
+   edges of its lane groups at both column widths (``SEARCH_EDGE_M`` x
+   ``SEARCH_EDGE_N``: default DNA, at and past the byte tables' limits, a
+   30 x 30 matrix, linear and affine, both orientations; tie-heavy periodic
+   PSSMs and pools with coordinates; all-padding entries; an NW batch
+   clamped at 0: ``phase_search_edges``). Then the fill kernel of each aligning search path against its plain version at
    that path's own align shape (2048 x 150 x 1536, 256 x 150 x 640, 1024 x
    50 x 512), on the pairs its planted reads win;
 6. the search paths, each with the launch counts set to 0 just before its
@@ -120,8 +125,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 2 * 128 * 132 * 1.98e9
 
-#: int32 operations per DP cell, (SW, NW). score.cu and search.cu share one
-#: cell loop (csrc/common.cuh, score_sweep), counted from its code: the
+#: int32 operations per DP cell, (SW, NW), of the score recurrence as
+#: score.cu's cell loop computes it (csrc/common.cuh, score_sweep): the
 #: substitution, then the recurrence.
 #: - recurrence, linear gaps: diag + s, two gap adds and two maxes (5); SW
 #:   adds its zero clamp and its running best (7 / 5). Affine gaps make each
@@ -129,8 +134,9 @@ INT32_OPS_PER_S = 2 * 128 * 132 * 1.98e9
 #:   11 / 9);
 #: - substitution: an index add for an S x S matrix or a query profile (the
 #:   lookup is a load, not an operation), so 1; a compare, a select and a
-#:   mask for the default DNA table, so 3. The one-vs-many kernel reads every
-#:   scoring as a query profile;
+#:   mask for the default DNA table, so 3. The one-vs-many kernel's bound
+#:   counts every scoring as one lookup, as its first design read each
+#:   through a query profile, so its bounds compare across its designs;
 #: - coordinates (search.cu, SW): the running best becomes a compare, a max
 #:   and a column select (+SEARCH_COORDS_OPS).
 #: The fills count from their recurrence (not yet from their cell
@@ -199,6 +205,17 @@ SEARCH_CHECK = 64
 PLAIN_QUERIES = {"map_reads": 16, "map_to_reference": 16, "profile_search": 1,
                  "translated_search": 16}
 SEARCH_ODD = ((37, 45), (300, 77))
+#: The edges of the one-vs-many kernel (csrc/search.cu: 16 lanes a pair, 32
+#: or 40 columns a lane): read rows fewer than, and just more than, the lanes
+#: and the lanes plus one; refs narrower than a lane, one column into a
+#: second stripe, the reference-mapping width and a partial last stripe.
+#: Each is run at both widths, SEARCH_EDGE_QUERIES queries against
+#: SEARCH_EDGE_POOL pool sequences in both orientations.
+SEARCH_EDGE_M, SEARCH_EDGE_N = (1, 20, 33), (9, 513, 640, 1100)
+SEARCH_EDGE_QUERIES, SEARCH_EDGE_POOL = 3, 24
+#: Affine reads too deep for a block's boundary columns in shared memory,
+#: against refs of more than one stripe.
+SEARCH_EDGE_DEEP = (4000, 1100)
 
 
 def _param_sets() -> dict:
@@ -894,6 +911,62 @@ def search_align_pairs(data) -> dict:
     }
 
 
+def search_geometry(data, lines: list[str], sms: int) -> list[str]:
+    """Each search launch (``search_launches``): the instantiation it runs,
+    the ref columns a lane owns and the stripes, the blocks (of 128 threads,
+    8 pairs) and warps launched per SM, the blocks and warps an SM holds at
+    once (by the instantiation's registers, allocated 256 a warp of 65536,
+    and by shared memory, 233472 bytes with 1 KB reserved a block; at most
+    16 blocks, 64 warps), the shared memory of a block, and
+    ``search_mem_plan`` against the (n, pairs) H (and F) row scratch that
+    a thread per pair kept in device memory before."""
+    from versalignlib_tpu_torch.ops import cuda_search as cu
+
+    regs = {}
+    for line in lines:
+        found = re.search(r"^(\S+): (\d+) registers", line)
+        if found:
+            regs[found.group(1)] = int(found.group(2))
+    out = []
+    for name, (params, queries, pool, kind) in search_launches(data).items():
+        affine = params.affine
+        if kind == "profile":
+            (k, m, s), (r, n) = queries.shape, pool.shape
+            table_bytes, code_bytes = 4 * m * s, 0
+        else:
+            (b, m), (rp, n) = queries.shape, pool.shape
+            k, r = (b, rp) if rp >= b else (rp, b)
+            code_bytes = m if rp >= b else n
+            table_bytes = 0 if cu.dna_fits_bytes(params) else 4 * params.sub_size ** 2
+        cols = cu.search_cols(m, n)
+        stripes = -(-n // (cu.LANES * cols))
+        edge = (4 * cu.PAIRS_PER_BLOCK * m * (2 if affine else 1)
+                if stripes > 1 and cu.edge_in_shared(m, n, affine) else 0)
+        rest = edge + code_bytes
+        if not table_bytes:
+            sub, smem = 0, rest
+        elif table_bytes + rest <= cu.SMEM_BYTES:
+            sub, smem = 1, table_bytes + rest
+        else:
+            sub, smem = 2, rest
+        blocks = -(-r // cu.PAIRS_PER_BLOCK) * k
+        pairs = k * r
+        plan = cu.search_mem_plan(n, pairs, affine, m)
+        row_scratch = pairs * (4 * n * (2 if affine else 1) + 12)
+        algs = [(1, int(kind == "profile"))] + [(0, 0)]
+        for local, coords in algs:
+            inst = f"search_kernel<{local},{int(affine)},{coords},{sub},{cols}>"
+            per_warp = -(-regs.get(inst, 255) * 32 // 256) * 256
+            resident = min(16, (65536 // per_warp) // 4, 233472 // (smem + 1024))
+            out.append(f"{name} {'SW' if local else 'NW'}: {inst} {regs.get(inst, '?')} "
+                       f"registers; {k} queries x {r} pool, {m}x{n}, {cols} cols a lane, {stripes} "
+                       f"stripe(s); {blocks} blocks, {4 * blocks / sms:.1f} warps launched "
+                       f"per SM, {resident} blocks ({4 * resident} warps) resident per SM; "
+                       f"{smem} B shared a block; mem plan {plan / 2**20:.1f} MiB "
+                       f"(row scratch before: {row_scratch / 2**20:.1f} MiB)")
+    return out
+
+
 def _plain_slice(kind: str, name: str, queries, pool):
     """The slice of a launch that the plain version scores: PLAIN_QUERIES
     of its queries (the smaller side) against the whole pool."""
@@ -919,17 +992,19 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
     def hold(key, label, got, want):
         err[key] = max(err.get(key, 0), check_equal(f"search.cu {key} {label}", got, want))
 
-    def cross(key, label, reads, refs, params):
+    def cross(key, label, reads, refs, params, say=True):
         r = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         f = torch.from_numpy(np.ascontiguousarray(refs)).to(dev)
         for alg in Algorithm:
             hold(key, f"{label} {alg.name}", cuda_search.cross_scores_device(r, f, params, alg),
                  plain.cross_scores(r, f, params, alg))
         side = "reads" if r.shape[0] > f.shape[0] else "refs"
-        log(f"[search] search.cu == plain  {key:30s} {label}: SW, NW; "
-            f"{r.shape[0]}x{r.shape[1]} reads vs {f.shape[0]}x{f.shape[1]} refs, pool = {side}")
+        if say:
+            log(f"[search] search.cu == plain  {key:30s} {label}: SW, NW; "
+                f"{r.shape[0]}x{r.shape[1]} reads vs {f.shape[0]}x{f.shape[1]} refs, "
+                f"pool = {side}")
 
-    def profile(key, label, table, pool, params):
+    def profile(key, label, table, pool, params, say=True):
         t = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
         p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
         got = cuda_search.pssm_scores_device(t, p, params, sw, with_coords=True)
@@ -938,8 +1013,9 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
             hold(key, f"{label} SW {part}", g, w)
         hold(key, f"{label} NW", cuda_search.pssm_scores_device(t, p, params, nw),
              plain.profile_scores(t, p, params, nw))
-        log(f"[search] search.cu == plain  {key:30s} {label}: SW with coords, NW; "
-            f"{tuple(t.shape)} profiles vs {p.shape[0]}x{p.shape[1]} pool")
+        if say:
+            log(f"[search] search.cu == plain  {key:30s} {label}: SW with coords, NW; "
+                f"{tuple(t.shape)} profiles vs {p.shape[0]}x{p.shape[1]} pool")
 
     # Each path's launch, on a slice of its queries against the full pool.
     for name, (params, queries, pool, kind) in search_launches(data).items():
@@ -980,6 +1056,7 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
         for params in (lin, aff):
             profile(odd, f"pssm {m_big * 25 * 4 // 1000} KB "
                     f"{'affine' if params.affine else 'linear'}", table, pool, params)
+    phase_search_edges(rng, dev, cross, profile, odd)
     # Each aligning path's fill kernel at its own align shape.
     fills = {}
     for name, (params, r_np, f_np) in search_align_pairs(data).items():
@@ -993,6 +1070,110 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     big = err.pop(odd)
     return {key: max(e, big) for key, e in err.items()}, fills
+
+
+@contextlib.contextmanager
+def _search_width(cols: int):
+    """While active, every launch of the one-vs-many kernel gives each lane
+    ``cols`` ref columns, whatever ``cuda_search.search_cols`` would choose
+    (the output does not depend on it)."""
+    from versalignlib_tpu_torch.ops import cuda_search
+
+    chosen = cuda_search.search_cols
+    cuda_search.search_cols = lambda m, n: cols
+    try:
+        yield
+    finally:
+        cuda_search.search_cols = chosen
+
+
+def _periodic_pool(rng, rows: int, n: int, size: int) -> np.ndarray:
+    """Pool codes: a third periodic (period 4, so a maximum recurs across
+    lanes and stripes), a third random with codes past ``size``, and a
+    third of padding (best 0, cell (0, 0))."""
+    pool = rng.integers(0, size + 6, size=(rows, n)).astype(np.uint8)
+    pool[: rows // 3] = np.tile(np.array([1, 2, 3, 1], np.uint8), -(-n // 4))[:n]
+    pool[rows - rows // 3:] = 0
+    return pool
+
+
+def phase_search_edges(rng, dev, cross, profile, key: str) -> None:
+    """The one-vs-many kernel against its plain version at the edges of its
+    lane groups (SEARCH_EDGE_M x SEARCH_EDGE_N), at both column widths:
+    default DNA (byte tables; scores at the byte's limits; scores past a
+    byte, through the 6 x 6 matrix), a 30 x 30 matrix, linear and affine,
+    both orientations, SW and NW; PSSMs with a periodic tie-heavy profile
+    and pool (SW with coordinates, NW) and all-padding entries; and an NW
+    batch whose overlap score clamps at 0; and affine reads of
+    SEARCH_EDGE_DEEP rows, whose boundary columns live in device memory."""
+    from versalignlib_tpu_torch.ops import cuda_search, plain
+    from versalignlib_tpu_torch.params import AlignmentParameters
+    from versalignlib_tpu_torch.types import Algorithm
+
+    mat = _random_matrix(rng, 30)
+    sets = (("dna linear", AlignmentParameters(score_gap_read=-2, score_gap_ref=-3), 4),
+            ("dna affine", AlignmentParameters(gap_open_read=-5, gap_open_ref=-4), 4),
+            ("dna byte limits", AlignmentParameters(score_match=127, score_mismatch=-128,
+                                                    score_gap_read=-60, score_gap_ref=-70), 4),
+            ("dna past a byte", AlignmentParameters(score_match=300, score_mismatch=-200,
+                                                    score_gap_read=-7, score_gap_ref=-5,
+                                                    gap_open_read=-40, gap_open_ref=-30), 4),
+            ("matrix linear", AlignmentParameters(score_gap_read=-3, score_gap_ref=-2,
+                                                  matrix=mat), 30),
+            ("matrix affine", AlignmentParameters(score_gap_read=-1, score_gap_ref=-2,
+                                                  gap_open_read=-3, gap_open_ref=-4,
+                                                  matrix=mat), 30))
+    lin = AlignmentParameters(score_gap_read=-3, score_gap_ref=-2)
+    aff = AlignmentParameters(score_gap_read=-1, score_gap_ref=-2, gap_open_read=-6,
+                              gap_open_ref=-5)
+    q, pool_rows = SEARCH_EDGE_QUERIES, SEARCH_EDGE_POOL
+    t0 = time.perf_counter()
+    for m in SEARCH_EDGE_M:
+        for n in SEARCH_EDGE_N:
+            for label, params, size in sets:
+                reads = _periodic_pool(rng, pool_rows, m, size)
+                refs = _periodic_pool(rng, pool_rows, n, size)
+                for cols in (32, 40):
+                    with _search_width(cols):
+                        # Pool = refs (query_is_read), then pool = reads.
+                        cross(key, f"{label} {m}x{n} {cols} cols", reads[:q], refs, params,
+                              say=False)
+                        cross(key, f"{label} {m}x{n} {cols} cols", reads, refs[:q], params,
+                              say=False)
+            # A PSSM whose best recurs along the periodic pool's diagonals.
+            table = rng.integers(-3, 3, size=(q, m, 25)).astype(np.int32)
+            pattern = np.array([1, 2, 3, 1])[np.arange(m) % 4]
+            table[:, np.arange(m), pattern] = 4
+            table[:, :, 0] = 0
+            pool = _periodic_pool(rng, pool_rows, n, 25)
+            for params in (lin, aff):
+                for cols in (32, 40):
+                    with _search_width(cols):
+                        profile(key, f"pssm {'affine' if params.affine else 'linear'} "
+                                f"{m}x{n} {cols} cols", table, pool, params, say=False)
+    # Read rows whose boundary columns do not fit shared memory: they go to
+    # device memory (cuda_search.edge_in_shared).
+    m, n = SEARCH_EDGE_DEEP
+    if cuda_search.edge_in_shared(m, n, True):
+        raise AssertionError("the deep edge shape keeps its boundary in shared memory")
+    cross(key, f"dna affine {m}x{n} boundary in device memory",
+          _periodic_pool(rng, SEARCH_EDGE_QUERIES, m, 4),
+          _periodic_pool(rng, SEARCH_EDGE_POOL // 3, n, 4), sets[1][1], say=False)
+    # NW overlap scores that clamp at 0: every cell a mismatch or a gap.
+    reads = np.full((SEARCH_EDGE_QUERIES, 33), 1, np.uint8)
+    refs = np.full((SEARCH_EDGE_POOL, 1100), 2, np.uint8)
+    r, f = (torch.from_numpy(x).to(dev) for x in (reads, refs))
+    nw = Algorithm.NEEDLEMAN_WUNSCH
+    want = plain.cross_scores(r, f, lin, nw)
+    if bool((want != 0).any()):
+        raise AssertionError("the NW clamp batch does not clamp")
+    for cols in (32, 40):
+        with _search_width(cols):
+            check_equal(f"search.cu {key} NW clamp {cols} cols",
+                        cuda_search.cross_scores_device(r, f, lin, nw), want)
+    torch.cuda.synchronize()
+    log(f"[search] search.cu edges: m {SEARCH_EDGE_M} x n {SEARCH_EDGE_N} x 32, 40 cols, "
+        f"{len(sets)} scorings + PSSMs, NW clamp: {time.perf_counter() - t0:.1f} s")
 
 
 class _LaunchTimer:
@@ -1239,8 +1420,7 @@ def phase_search_times(dev, data, paths: dict, errs: dict, fills: dict) -> list[
         else:
             (k, m), (r, n) = q.shape, p.shape
             s = params.sub_size
-            lq = m if r >= k else n
-            nbytes = k * m + r * n + 4 * min(k, r) * lq * s + 4 * k * r
+            nbytes = k * m + r * n + 4 * s * s + 4 * k * r
             plain_cells = q_pl.shape[0] * m * p_pl.shape[0] * n
         cells = k * r * m * n
         gap = "affine" if params.affine else "linear"
@@ -1775,8 +1955,10 @@ def main() -> int:
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
         f"total {time.perf_counter() - t_start:.2f} s")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reg_lines = {}
     for src in seconds:
-        lines = register_report(_build.library_path(src).with_suffix(".log").read_text())
+        lines = reg_lines[src] = register_report(
+            _build.library_path(src).with_suffix(".log").read_text())
         for line in lines:
             log(f"[build] {src} {line}")
         if src in ("align.cu", "align_affine.cu", "search.cu"):
@@ -1799,6 +1981,8 @@ def main() -> int:
     t0 = time.perf_counter()
     data = make_search_data(rng)
     log(f"[phase] search data: {time.perf_counter() - t0:.1f} s")
+    for line in search_geometry(data, reg_lines["search.cu"], sms):
+        log(f"[build] search.cu launch: {line}")
     t0 = time.perf_counter()
     search_errs, fill_errs = phase_search_kernels_vs_plain(rng, dev, data)
     log(f"[phase] search kernel vs plain: {time.perf_counter() - t0:.1f} s")

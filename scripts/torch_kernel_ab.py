@@ -7,16 +7,17 @@ interleaved.
 Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``.
 Its sources are built with the package's nvcc flags into ``build/ab/<i>/``
 of this checkout and bound in place of the package's own build.
-``score.cu`` and ``search.cu`` must keep this checkout's C interface, and
-every side runs through this checkout's wrappers: scores on 16384 pairs of
-512 x 512 under ``chip_smoke``'s four parameter sets, SW and NW, and the
-one-vs-many kernel at each search path's launch shape
-(``chip_smoke.search_launches``). The pointer fills (``align.cu``,
-``align_affine.cu``) run through each checkout's own wrapper
-(``ops/cuda_align.py`` of that checkout, loaded under a name of its own),
-so the sides may differ in their C interface and in the layout they launch
-on: ``cuda_align.fill`` on 4096 pairs of 512 x 512 under the four
-parameter sets, SW and NW in both flavors, and at each aligning search
+``score.cu`` must keep this checkout's C interface, and every side runs
+through this checkout's wrapper: scores on 16384 pairs of 512 x 512 under
+``chip_smoke``'s four parameter sets, SW and NW. The one-vs-many kernel
+(``search.cu``) and the pointer fills (``align.cu``, ``align_affine.cu``)
+run through each checkout's own wrapper (``ops/cuda_search.py`` or
+``ops/cuda_align.py`` of that checkout, loaded under a name of its own), so
+the sides may differ in their C interface and in the layout they launch
+on: the one-vs-many kernel at each search path's launch shape
+(``chip_smoke.search_launches``), SW and NW (the profile launch's SW with
+coordinates); ``cuda_align.fill`` on 4096 pairs of 512 x 512 under the
+four parameter sets, SW and NW in both flavors, and at each aligning search
 path's align shape (``chip_smoke.search_align_pairs``), SW and NW,
 canonical flavor. Each round times every side once (CUDA-event median of 7
 after a warm-up, wrapper included), the order reversed every other round,
@@ -44,23 +45,27 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from versalignlib_tpu_torch.ops import _build, cuda_score, cuda_search  # noqa: E402
+from versalignlib_tpu_torch.ops import _build, cuda_score  # noqa: E402
 from versalignlib_tpu_torch.types import Algorithm, TieBreak  # noqa: E402
 
 #: The sources that run through this checkout's wrappers, and their kernels.
-KERNELS = {"score.cu": cuda_score.SCORE_KERNEL, "search.cu": cuda_search.SEARCH_KERNEL}
-#: The fill sources, and the name of their kernel in each side's wrapper.
-FILLS = {"align.cu": "ALIGN_KERNEL", "align_affine.cu": "AFFINE_KERNEL"}
+KERNELS = {"score.cu": cuda_score.SCORE_KERNEL}
+#: The sources that run through each side's own wrapper: (wrapper module,
+#: the name of the source's kernel in it).
+OWN = {"search.cu": ("cuda_search", "SEARCH_KERNEL"),
+       "align.cu": ("cuda_align", "ALIGN_KERNEL"),
+       "align_affine.cu": ("cuda_align", "AFFINE_KERNEL")}
+FILLS = ("align.cu", "align_affine.cu")
 
 
-def fill_wrapper(side: int, checkout: pathlib.Path):
-    """The checkout's own ``ops/cuda_align.py``, loaded as a module of its
+def own_wrapper(side: int, checkout: pathlib.Path, module: str):
+    """The checkout's own ``ops/<module>.py``, loaded as a module of its
     own (it imports the rest of the package from this checkout)."""
-    path = checkout / "versalignlib_tpu_torch" / "ops" / "cuda_align.py"
-    spec = importlib.util.spec_from_file_location(f"_ab_cuda_align_{side}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    path = checkout / "versalignlib_tpu_torch" / "ops" / f"{module}.py"
+    spec = importlib.util.spec_from_file_location(f"_ab_{module}_{side}", path)
+    loaded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loaded)
+    return loaded
 
 
 def build(side: int, checkout: pathlib.Path, source: str, kernel):
@@ -79,7 +84,7 @@ def build(side: int, checkout: pathlib.Path, source: str, kernel):
 
 def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
     """(name, source, call) for every timed case of ``sources``; call(i)
-    runs side i."""
+    runs side i; ``wrappers[i]`` maps a wrapper module's name to side i's."""
     rng = np.random.default_rng(0)
     out = []
     sets = cs._param_sets()
@@ -95,18 +100,22 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH),
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH), tuple(TieBreak))
              for pname, params in sets.items() if cs._fill_source(params) in sources]
-    if "search.cu" in sources or FILLS.keys() & set(sources):
+    if "search.cu" in sources or set(FILLS) & set(sources):
         data = cs.make_search_data(rng)
     if "search.cu" in sources:
         for name, (params, queries, pool, kind) in cs.search_launches(data).items():
             q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
             p = torch.from_numpy(np.ascontiguousarray(pool)).to(dev)
             for alg in Algorithm:
-                if kind == "profile" and alg == Algorithm.NEEDLEMAN_WUNSCH:
-                    continue
-                out.append((f"search {name} {alg.name}", "search.cu",
-                            lambda i, c=cs._search_call(kind, q, p, params, alg)[0]: c()))
-    if FILLS.keys() & set(sources):
+                if kind == "profile":
+                    coords = alg == Algorithm.SMITH_WATERMAN
+                    call = (lambda i, q=q, p=p, pr=params, a=alg, c=coords:
+                            wrappers[i]["cuda_search"].pssm_scores_device(q, p, pr, a, c))
+                else:
+                    call = (lambda i, q=q, p=p, pr=params, a=alg:
+                            wrappers[i]["cuda_search"].cross_scores_device(q, p, pr, a))
+                out.append((f"search {name} {alg.name}", "search.cu", call))
+    if set(FILLS) & set(sources):
         for name, (params, r_np, f_np) in cs.search_align_pairs(data).items():
             (b, m), n = r_np.shape, f_np.shape[1]
             fills.append((f"{name} {b}x{m}x{n}", params, r_np, f_np, (TieBreak.DIAG_UP_LEFT,)))
@@ -117,11 +126,12 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
         r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
         f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
         for tie in ties:
-            mrp = torch.from_numpy(wrappers[0].last_valid_pos(r_np, tie, params.matrix)).to(dev)
+            mrp = torch.from_numpy(
+                wrappers[0]["cuda_align"].last_valid_pos(r_np, tie, params.matrix)).to(dev)
             for alg in Algorithm:
                 out.append((f"fill {label} {alg.name} {tie.name}", source,
                             lambda i, r=r, f=f, mrp=mrp, p=params, a=alg, t=tie:
-                            tuple(x for x in wrappers[i].fill(r, f, mrp, p, a, t)
+                            tuple(x for x in wrappers[i]["cuda_align"].fill(r, f, mrp, p, a, t)
                                   if x is not None)))
     return out
 
@@ -131,22 +141,27 @@ def main() -> int:
     ap.add_argument("checkouts", nargs="+", type=pathlib.Path)
     ap.add_argument("--pairs", type=int, default=10, help="rounds of every side")
     ap.add_argument("--out", type=pathlib.Path, help="write every round's times here (JSON)")
-    ap.add_argument("--kernels", nargs="+", default=[*KERNELS, *FILLS],
-                    choices=[*KERNELS, *FILLS], help="the sources to time")
+    ap.add_argument("--kernels", nargs="+", default=[*KERNELS, *OWN],
+                    choices=[*KERNELS, *OWN], help="the sources to time")
     args = ap.parse_args()
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
     checkouts = [c.resolve() for c in args.checkouts]
-    wrappers = [fill_wrapper(i, c) for i, c in enumerate(checkouts)]
+    modules = {OWN[s][0] for s in args.kernels if s in OWN}
+    wrappers = [{mod: own_wrapper(i, c, mod) for mod in modules}
+                for i, c in enumerate(checkouts)]
 
     def kernel_of(i, source):
-        return getattr(wrappers[i], FILLS[source]) if source in FILLS else KERNELS[source]
+        if source in OWN:
+            mod, kernel = OWN[source]
+            return getattr(wrappers[i][mod], kernel)
+        return KERNELS[source]
 
     jobs = [(i, c, s, kernel_of(i, s)) for i, c in enumerate(checkouts) for s in args.kernels]
     with ThreadPoolExecutor(len(jobs)) as ex:
         fns = dict(zip([(i, s) for i, _, s, _ in jobs], ex.map(lambda j: build(*j), jobs)))
     for (i, source), fn in fns.items():
-        if source in FILLS:
+        if source in OWN:
             kernel_of(i, source)._fn = fn
     sides = range(len(checkouts))
     results = {}

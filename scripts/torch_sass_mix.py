@@ -7,12 +7,15 @@ use), disassembles each library with ``cuobjdump -sass`` and prints, per
 kernel instantiation, one JSON line with its instruction count, the count of
 each opcode (modifiers dropped: ``IMNMX.S32`` counts as ``IMNMX``), and its
 hot loop: the longest loop with no loop inside it (a backward branch and
-its target). In ``score.cu`` and ``search.cu`` that is the column loop of
-a sweep of ``--rows`` read rows (``common.cuh``, kRows), two columns per
-iteration; in the fills it is a stripe's step loop (``fill.cuh``), one row
-of a lane's 16 columns per iteration, whose body also holds the rarely
-taken SW argmax search and NW row-mrp code, so its count per cell is an
-upper bound. For that loop it gives the opcodes, the instructions
+its target). In ``score.cu`` that is the column loop of a sweep of
+``--rows`` read rows (``common.cuh``, kRows), two columns per iteration; in
+the fills it is a stripe's step loop (``fill.cuh``), one row of a lane's 16
+columns per iteration, whose body also holds the rarely taken SW argmax
+search and NW row-mrp code, so its count per cell is an upper bound; in
+``search.cu`` it is a stripe's step loop, one row of a lane's kCols columns
+(the instantiation's last template argument) per iteration. A stripe whose
+last lane is partial runs a second copy of that loop with a select a cell;
+``inner_loops`` lists the instructions of every innermost loop. For that loop it gives the opcodes, the instructions
 per cell (loop instructions / rows / columns) and their split by the pipe
 that issues them, as the Nsight Compute profiling guide
 describes the pipes: ``fma`` takes IMAD and IMUL (and FP32), ``alu`` the
@@ -40,8 +43,16 @@ from versalignlib_tpu_torch.ops import _build  # noqa: E402
 #: the fills (fill.cuh, kCols), an even and an odd column in the shared
 #: score loop (common.cuh, score_sweep); and the read rows of the fills'
 #: iteration (the score loops take ``--rows``).
-COLUMNS = {"align.cu": 16, "align_affine.cu": 16, "score.cu": 2, "search.cu": 2}
-ROWS = {"align.cu": 1, "align_affine.cu": 1}
+COLUMNS = {"align.cu": 16, "align_affine.cu": 16, "score.cu": 2}
+ROWS = {"align.cu": 1, "align_affine.cu": 1, "search.cu": 1}
+
+
+def columns(source: str, func: str) -> int:
+    """DP columns per hot-loop iteration of ``func``: search.cu's kCols is
+    the last integer template argument of its mangled name."""
+    if source == "search.cu":
+        return int(re.findall(r"Li(\d+)E", func)[-1])
+    return COLUMNS.get(source, 1)
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(
@@ -78,6 +89,8 @@ def hot_loop(insns: list[tuple[int, str, str]], rows: int, cols: int = 1) -> dic
              if not any(lo <= a and b < hi and (a, b) != (lo, hi) for a, b in loops)]
     if not inner:
         return None
+    sizes = sorted((sum(lo <= a <= hi for a, _, _ in insns) for lo, hi in inner),
+                   reverse=True)
     lo, hi = max(inner, key=lambda span: span[1] - span[0])
     body = [op for addr, op, _ in insns if lo <= addr <= hi]
     mix = collections.Counter(body)
@@ -86,6 +99,7 @@ def hot_loop(insns: list[tuple[int, str, str]], rows: int, cols: int = 1) -> dic
     return {"instructions": len(body), "cells": cells,
             "per_cell": len(body) / cells,
             "per_cell_by_pipe": {k: v / cells for k, v in pipes.most_common()},
+            "inner_loops": sizes,
             "opcodes": dict(mix.most_common())}
 
 
@@ -112,7 +126,7 @@ def main() -> int:
                                       "opcodes": dict(mix.most_common()),
                                       "hot_loop": hot_loop(insns,
                                                            ROWS.get(source, args.rows),
-                                                           COLUMNS.get(source, 1))}))
+                                                           columns(source, func))}))
                 func, insns = m.group(1), []
                 continue
             m = _INSN.match(line)

@@ -63,24 +63,32 @@ def check_cross_scores_against_pallas(params, alg):
 
 @pytest.mark.parametrize("name", ["dna_linear", "matrix", "blosum62"])
 def test_query_profiles_reproduce_the_substitution_scores(name):
-    """The table the CUDA kernel reads: prof[q, c] with c clamped to code 0
-    past S is the substitution score of that pair, in both orientations."""
+    """The tables the CUDA kernel reads: default DNA scores as one byte
+    table per read code (a cell is byte f of its row's 8 bytes, f the ref
+    code or 0 past A/C/G/T, sign-extended), and the S x S table indexed
+    [read][ref] with codes past S read as 0, which also carries DNA scores
+    too large for a byte. Every pair of codes scores as the substitution."""
     from versalignlib_tpu.alphabet import blosum62, substitution_scores
 
     params = (AlignmentParameters(matrix=blosum62()) if name == "blosum62" else PARAMS[name])
-    rng = np.random.default_rng(2)
     s = params.sub_size
-    query = rng.integers(0, s + 6, size=(3, 7)).astype(np.uint8)
-    pool_codes = np.arange(0, s + 6)
-    for query_is_read in (True, False):
-        prof = cuda_search.query_profile(torch.from_numpy(query), params, query_is_read).numpy()
-        assert prof.shape == (3, 7, s) and prof.dtype == np.int32
-        looked_up = prof[:, :, np.where(pool_codes < s, pool_codes, 0)]
-        read, ref = ((query[:, :, None], pool_codes[None, None, :]) if query_is_read
-                     else (pool_codes[None, None, :], query[:, :, None]))
-        want = substitution_scores(read, ref, params.score_match, params.score_mismatch,
-                                   params.matrix)
-        np.testing.assert_array_equal(looked_up, want)
+    codes = np.arange(0, s + 6)
+    want = substitution_scores(codes[:, None], codes[None, :], params.score_match,
+                               params.score_mismatch, params.matrix)
+    table = cuda_search.kernel_table(params, torch.device("cpu")).numpy()
+    assert table.shape == (s, s) and table.dtype == np.int32
+    inside = np.where(codes < s, codes, 0)
+    np.testing.assert_array_equal(table[inside[:, None], inside[None, :]], want)
+    assert cuda_search.dna_fits_bytes(params) == (name == "dna_linear")
+    if cuda_search.dna_fits_bytes(params):
+        words = cuda_search.dna_byte_table_words(params.score_match, params.score_mismatch)
+        assert words.shape == (8, 2) and words.dtype == np.int32
+        rows = words.view(np.uint32).astype(np.uint64)
+        row8 = rows[:, 0] | (rows[:, 1] << np.uint64(32))
+        sel = np.where((codes >= 1) & (codes <= 4), codes, 0).astype(np.uint64)
+        lanes = row8[np.where(codes < 8, codes, 0)][:, None] >> (np.uint64(8) * sel[None, :])
+        got = (lanes & np.uint64(0xFF)).astype(np.uint8).view(np.int8).astype(np.int32)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_stable_topk_keeps_the_lower_index_among_ties():
@@ -152,15 +160,65 @@ def test_search_accepts_strings_like_jax():
 
 
 def test_search_budget_gate(monkeypatch):
-    """A launch whose scratch plan exceeds the free device memory is refused
-    with guidance before anything is allocated; nothing is checked off the
-    card."""
-    assert cuda_search.search_mem_plan(1536, 1 << 20) == (1 << 20) * (4 * 1536 + 12)
-    assert cuda_search.search_mem_plan(1536, 1 << 20, affine=True) == \
-        (1 << 20) * (8 * 1536 + 12)
+    """A launch whose plan exceeds the free device memory is refused with
+    guidance before anything is allocated; nothing is checked off the card.
+    The plan is the three int32 outputs a pair, and the boundary columns
+    only where a block's do not fit shared memory: no DP row scratch."""
+    assert cuda_search.search_mem_plan(1536, 1 << 20, False, 150) == (1 << 20) * 12
+    assert cuda_search.search_mem_plan(1536, 1 << 20, True, 150) == (1 << 20) * 12
+    assert cuda_search.search_mem_plan(512, 1 << 20, True, 8000) == (1 << 20) * 12
+    assert cuda_search.search_mem_plan(1536, 1 << 20, True, 8000) == (1 << 20) * (12 + 8 * 8000)
+    assert cuda_search.search_mem_plan(1536, 1 << 20, False, 8000) == (1 << 20) * (12 + 4 * 8000)
     capabilities.check_search_budget(150, 1 << 20, 1 << 20, True, torch.device("cpu"))
     monkeypatch.setattr(capabilities, "free_device_bytes", lambda device: 8 << 30)
     cuda = torch.device("cuda")
-    capabilities.check_search_budget(150, 1536, 1 << 20, False, cuda)   # 6.4 GB fits
+    capabilities.check_search_budget(150, 1536, 1 << 20, True, cuda)    # 12.6 MB fits
     with pytest.raises(ValueError, match="smaller --window"):
-        capabilities.check_search_budget(150, 1536, 1 << 20, True, cuda)  # 12.9 GB
+        capabilities.check_search_budget(8000, 1536, 1 << 20, True, cuda)  # 67 GB
+
+
+def _edge_params(gap):
+    return AFFINE_DNA if gap == "affine" else AlignmentParameters(score_gap_read=-2,
+                                                                   score_gap_ref=-3)
+
+
+@pytest.mark.parametrize("gap", ["linear", "affine"])
+@pytest.mark.parametrize("n", [9, 513, 640])
+@pytest.mark.parametrize("m", [1, 20])
+def test_device_entries_on_cpu_equal_numpy_oracles_at_edge_shapes(m, n, gap):
+    """What the card's checks hold the kernel to: ``cross_scores_device``
+    and ``pssm_scores_device`` on the CPU (their plain versions) against
+    the JAX package's numpy oracles at the kernel's edge shapes (fewer read
+    rows than lanes, refs narrower than a lane, one column into a second
+    stripe, the reference-mapping width): cross scores SW and NW, profiles
+    SW with coordinates (periodic pools whose maximum recurs, an all-padding
+    entry) and NW."""
+    from versalignlib_tpu.ops import gotoh, oracle
+    from versalignlib_tpu.ops.pssm import profile_argmax_oracle, score_profile_oracle
+
+    params = _edge_params(gap)
+    jp = _jp(params)
+    rng = np.random.default_rng(m * 1000 + n)
+    reads = rng.integers(0, 7, size=(3, m)).astype(np.uint8)
+    refs = rng.integers(0, 7, size=(2, n)).astype(np.uint8)
+    sw_fn, nw_fn = ((gotoh.sw_score_affine, gotoh.nw_score_affine) if params.affine
+                    else (oracle.sw_score, oracle.nw_score))
+    for alg, fn in ((Algorithm.SMITH_WATERMAN, sw_fn), (Algorithm.NEEDLEMAN_WUNSCH, nw_fn)):
+        got = cuda_search.cross_scores_device(torch.from_numpy(reads), torch.from_numpy(refs),
+                                              params, alg).numpy()
+        want = [[fn(a, b, jp) for b in refs] for a in reads]
+        np.testing.assert_array_equal(got, want)
+    tables = rng.integers(-3, 4, size=(2, m, 6)).astype(np.int32)
+    tables[:, :, 0] = 0
+    pool = np.tile(np.array([1, 2, 3, 1], np.uint8), (3, -(-n // 4)))[:, :n].copy()
+    pool[1] = rng.integers(0, 8, size=n)
+    pool[2] = 0
+    t, p = torch.from_numpy(tables), torch.from_numpy(pool)
+    got = cuda_search.pssm_scores_device(t, p, params, Algorithm.SMITH_WATERMAN,
+                                         with_coords=True)
+    nw = cuda_search.pssm_scores_device(t, p, params, Algorithm.NEEDLEMAN_WUNSCH).numpy()
+    for q in range(tables.shape[0]):
+        for part, want in zip(got, profile_argmax_oracle(tables[q], pool, jp)):
+            np.testing.assert_array_equal(part[q].numpy(), want)
+        np.testing.assert_array_equal(
+            nw[q], score_profile_oracle(tables[q], pool, jp, JaxAlgorithm.NEEDLEMAN_WUNSCH))

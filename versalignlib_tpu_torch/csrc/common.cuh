@@ -1,10 +1,10 @@
-// Pieces shared by the kernels of this directory: for score.cu, align.cu,
-// align_affine.cu and search.cu, where an S x S matrix lives and how a cell
-// looks it up, and the host-side choice of template instantiation; for
-// score.cu and search.cu, the launch shape, the walk over read rows in
-// sweeps, the SW argmax fold and their best-score recurrence, of which they
-// keep only how a cell finds its substitution score. The pointer fills keep
-// their wavefront in fill.cuh.
+// Pieces shared by the kernels of this directory: for score.cu, align.cu
+// and align_affine.cu, where an S x S matrix lives and how a cell looks it
+// up, and the host-side choice of template instantiation; for score.cu,
+// the launch shape, the walk over read rows in sweeps, the SW argmax fold
+// and the best-score recurrence, of which it keeps only how a cell finds
+// its substitution score. The pointer fills keep their wavefront in
+// fill.cuh, and search.cu its own (it takes kNegInf from here).
 
 #pragma once
 
@@ -63,37 +63,17 @@ __device__ __forceinline__ void for_sweeps(int m, Sweep &&sweep) {
   for (; i0 < m; ++i0) sweep(std::integral_constant<int, 1>{}, i0);
 }
 
-// The pair's SW argmax: each sweep's row maxima folded in row order with
-// strict first-win.
-struct FillResult {
-  int best = 0, row = 0, col = 0;
-
-  template <int R>
-  __device__ __forceinline__ void fold_rows(const int (&best_r)[R],
-                                            const int (&arg_r)[R], int i0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (best_r[r] > best) {
-        best = best_r[r];
-        row = i0 + r;
-        col = arg_r[r];
-      }
-    }
-  }
-};
-
 // The gap scores of the best-score recurrence (open_* with affine gaps only).
 struct Gaps {
   int gap_read, gap_ref, open_read, open_ref;
 };
 
 // The state of one sweep of R read rows for score_sweep: each row's
-// substitution state, its left and diagonal H values and its Gotoh E, and
-// with coordinates its leftmost strict maximum and that maximum's column.
+// substitution state, its left and diagonal H values and its Gotoh E.
 template <int R, typename Sub>
 struct SweepRows {
   typename Sub::Row row[R];
-  int left[R], diag[R], e[R], rbest[R], rcol[R];
+  int left[R], diag[R], e[R];
 };
 
 // What score_column reads of one column before it computes: its input
@@ -116,7 +96,7 @@ __device__ __forceinline__ void load_column(ColumnLoads &l, const Sub &sub, int 
 // Column j of a sweep, from its loads `l`, which it then refills for column
 // j + 2 (column n - 1 again past the end, unused), and the store of row
 // i0 + R - 1's H (and F) value.
-template <int R, bool kLocal, bool kAffine, bool kCoords, typename Sub>
+template <int R, bool kLocal, bool kAffine, typename Sub>
 __device__ __forceinline__ void score_column(SweepRows<R, Sub> &st, ColumnLoads &l,
                                              const Sub &sub, const Gaps &g,
                                              int j, int n, int i0, int32_t *h,
@@ -143,14 +123,7 @@ __device__ __forceinline__ void score_column(SweepRows<R, Sub> &st, ColumnLoads 
       if (kLocal) l_in = max(l_in, 0);
       cur = max(max(st.diag[r] + s, up + g.gap_ref), l_in);
     }
-    if (kCoords) {
-      if (cur > st.rbest[r]) {
-        st.rbest[r] = cur;
-        st.rcol[r] = j;
-      }
-    } else if (kLocal) {
-      best = max(best, cur);
-    }
+    if (kLocal) best = max(best, cur);
     st.diag[r] = up;
     st.left[r] = cur;
     up = cur;
@@ -170,8 +143,7 @@ __device__ __forceinline__ void score_column(SweepRows<R, Sub> &st, ColumnLoads 
 // `sub` gives the substitution score: sub.row(i) the state of read row i,
 // found once per sweep; sub.load(j) column j's input; sub.col(input) the
 // column's state; sub.score(row, col) the cell's. SW folds every cell into
-// `best`, or with kCoords into per-row leftmost strict maxima that `res`
-// merges in row order; NW folds the last column of every row into `best`.
+// `best`; NW folds the last column of every row into `best`.
 //
 // A column's loads are issued two columns ahead, into one set of registers
 // for the even columns and one for the odd: each set is refilled as soon as
@@ -180,11 +152,11 @@ __device__ __forceinline__ void score_column(SweepRows<R, Sub> &st, ColumnLoads 
 // waits on a load. Loaded one column ahead, the loads sit where the
 // compiler puts them, late in the loop body in some branches, which ran up
 // to 47% slower (PERF.md).
-template <int R, bool kLocal, bool kAffine, bool kCoords, typename Sub>
+template <int R, bool kLocal, bool kAffine, typename Sub>
 __device__ __forceinline__ void score_sweep(const Sub &sub, const Gaps &g,
                                             int n, int i0, int32_t *h,
                                             int32_t *f, size_t stride,
-                                            int32_t &best, FillResult &res) {
+                                            int32_t &best) {
   SweepRows<R, Sub> st;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -192,20 +164,15 @@ __device__ __forceinline__ void score_sweep(const Sub &sub, const Gaps &g,
     st.left[r] = 0;  // H[i0 + r + 1][0] = 0 on the score path
     st.diag[r] = 0;
     st.e[r] = kNegInf;
-    st.rbest[r] = 0;
-    st.rcol[r] = 0;
   }
   ColumnLoads even, odd;
   load_column<kAffine>(even, sub, 0, i0, h, f, stride);
   load_column<kAffine>(odd, sub, min(1, n - 1), i0, h, f, stride);
   for (int j = 0; j < n; j += 2) {
-    score_column<R, kLocal, kAffine, kCoords>(st, even, sub, g, j, n, i0, h, f,
-                                              stride, best);
+    score_column<R, kLocal, kAffine>(st, even, sub, g, j, n, i0, h, f, stride, best);
     if (j + 1 < n)
-      score_column<R, kLocal, kAffine, kCoords>(st, odd, sub, g, j + 1, n, i0, h,
-                                                f, stride, best);
+      score_column<R, kLocal, kAffine>(st, odd, sub, g, j + 1, n, i0, h, f, stride, best);
   }
-  if (kCoords) res.fold_rows<R>(st.rbest, st.rcol, i0);
   if (!kLocal) {
     // NW: the last column of every row (DefaultKernel.cpp:177).
 #pragma unroll
@@ -215,21 +182,17 @@ __device__ __forceinline__ void score_sweep(const Sub &sub, const Gaps &g,
 
 // The best score of one pair of m read rows and n columns, through
 // score_sweep (see there for `sub`, `h`, `f` and `stride`). SW returns the
-// local maximum seeded at 0, and with kCoords leaves its argmax cell in
-// `res`, (0, 0) where the best is 0. NW returns the overlap score: the
+// local maximum seeded at 0. NW returns the overlap score: the
 // maximum over the last column of every row and over the whole final row,
 // clamped at 0; on this score path column 0 is 0.
-template <bool kLocal, bool kAffine, bool kCoords, typename Sub>
+template <bool kLocal, bool kAffine, typename Sub>
 __device__ __forceinline__ int32_t score_pair(const Sub &sub, const Gaps &g,
                                               int m, int n, int32_t *h,
-                                              int32_t *f, size_t stride,
-                                              FillResult &res) {
+                                              int32_t *f, size_t stride) {
   int32_t best = 0;  // the SW seed, and the NW clamp at 0
   for_sweeps(m, [&](auto R, int i0) {
-    score_sweep<decltype(R)::value, kLocal, kAffine, kCoords>(
-        sub, g, n, i0, h, f, stride, best, res);
+    score_sweep<decltype(R)::value, kLocal, kAffine>(sub, g, n, i0, h, f, stride, best);
   });
-  if (kCoords) return res.best;
   if (!kLocal) {
     // NW: ... and the whole final row (DefaultKernel.cpp:189-191); its
     // column 0 is 0, which the seed covers.

@@ -43,9 +43,9 @@
 //   read-only cache instead (kMat 2);
 // - blocks are one warp, so a batch of b pairs gives b / 32 blocks to spread
 //   over the 132 SMs (larger blocks measured no faster; PERF.md).
-// The sweep and the recurrence are common.cuh's val::score_pair, which
-// search.cu shares; this source keeps how a cell finds its substitution
-// score (DnaSub, MatrixSub).
+// The sweep and the recurrence are common.cuh's val::score_pair; this
+// source keeps how a cell finds its substitution score (DnaSub,
+// MatrixSub).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,10 +123,9 @@ __global__ void __launch_bounds__(val::kThreads) score_kernel(ScoreArgs a) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.b) return;
   const val::Gaps g{a.gap_read, a.gap_ref, a.open_read, a.open_ref};
-  val::FillResult res;
   const auto run = [&](const auto &sub) {
-    return val::score_pair<kLocal, kAffine, false>(
-        sub, g, a.m, a.n, a.h + p, kAffine ? a.f + p : nullptr, a.b, res);
+    return val::score_pair<kLocal, kAffine>(sub, g, a.m, a.n, a.h + p,
+                                            kAffine ? a.f + p : nullptr, a.b);
   };
   if constexpr (kMat != 0) {
     a.out[p] = run(MatrixSub<kMat>{a.reads + p, a.refs + p, tab, a.b, a.s});

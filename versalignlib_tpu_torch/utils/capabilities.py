@@ -56,7 +56,7 @@ def check_search_budget(m: int, n: int, pairs: int, affine: bool,
         return
     from versalignlib_tpu_torch.ops.cuda_search import search_mem_plan
 
-    need = search_mem_plan(n, pairs, affine)
+    need = search_mem_plan(n, pairs, affine, m)
     free = free_device_bytes(device)
     if need > free:
         raise ValueError(
