@@ -16,8 +16,8 @@ Phases (any failure exits non-zero before a result is printed):
 
 1. card: name and power limit, torch and CUDA versions; build every kernel
    of ``versalignlib_tpu_torch/csrc`` (one nvcc per source, in parallel) and
-   print each instantiation's registers and spills (a spill in the fills or
-   in the one-vs-many kernel fails the run), and the fills' launch geometry
+   print each instantiation's registers and spills (a spill in the fills, the
+   one-vs-many kernel or the banded kernels fails the run), and the fills' launch geometry
    at 4096 pairs (the one-vs-many kernel's at each search launch, with its
    memory plan, once the search data is made: ``search_geometry``);
 2. every branch of every kernel against its plain PyTorch version on the
@@ -67,6 +67,12 @@ Phases (any failure exits non-zero before a result is printed):
    7, min, max, GCUPS), its plain version's at the slice shape, the bound;
 8. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
    ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
+   first at the edges of their row layout (``BANDED_EDGES``: bands of 8 and
+   20 where most lanes are empty, a band equal to n, steps of 3-4, 24, 32
+   and 40 columns a lane, all-padding reads with NW's mrp < 0, a tie-heavy
+   periodic batch, rows in device memory; ``phase_banded_edges``, each
+   launch's instantiation, registers, shared bytes, warps resident and
+   whether T stays in registers printed by ``banded_geometry``), then
    SW, NW x linear, affine x DNA, BLOSUM62 (fill: x both flavors) at 256
    pairs of 1500 x 1800, band 333 (steps of 2, a partial pointer word, rows
    padded to the score tile); bands too wide for shared memory (8 pairs of
@@ -88,8 +94,8 @@ Phases (any failure exits non-zero before a result is printed):
     strand, junk unmapped, 16 reads checked against the plain reference, the
     wall split into seeding and chaining, fill, decode and the rest;
 11. times of B5 and B6 at 1024 pairs of 16 kbp, band 512 (median of 7, min,
-    max, GCUPS in band cells), the plain versions' on the 32-pair slice, the
-    bounds;
+    max, GCUPS in band cells), each launch's geometry, the plain versions'
+    on the 32-pair slice, the bounds;
 12. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -1493,6 +1499,26 @@ HIFI_SUB, HIFI_INDEL = 0.005, 0.003
 BANDED_WIDE = (("dna_default", 8, 16000, 16000, 16000, ("sw",)),
                ("dna_affine_bwamem", 8, 16000, 16000, 4000, ("nw",)))
 BANDED_BIG_MATRIX, BANDED_BIG_MATRIX_SHAPE = 200, (64, 300, 360, 203)
+#: The edges of the banded kernels' row layout (csrc/banded.cuh), each
+#: held to the plain versions under every parameter set, SW and NW, both
+#: flavors: (label, pairs, m, n, band, reads). "random" reads are random
+#: codes, "edge" half of them copies of their ref shifted by half the band
+#: (the SW maximum runs along the band's right edge while the band is still
+#: pinned at column 0, where a lane's last pointer word is partial), "ties"
+#: the periodic batch of ``tie_batch`` (its last reads all N or padding),
+#: "padding" reads of padding alone (NW's mrp < 0).
+BANDED_EDGES = (
+    ("band 8, 31 lanes empty", 16, 96, 96, 8, "edge"),
+    ("band 20, a partial word, 29 lanes empty", 16, 96, 96, 20, "edge"),
+    ("band == n, every offset 0", 8, 80, 72, 72, "random"),
+    ("steps of 3-4 (n ~ 3.8 m)", 8, 48, 184, 16, "random"),
+    ("cols 24 (band 700)", 4, 40, 760, 700, "edge"),
+    ("cols 32 (band 1024, the register limit)", 4, 40, 1080, 1024, "random"),
+    ("cols 40 (band 1030, two chunks)", 4, 40, 1080, 1030, "edge"),
+    ("all padding, NW mrp < 0", 8, 48, 64, 24, "padding"),
+    ("tie-heavy periodic, band 45", 16, 64, 80, 45, "ties"),
+    ("rows in device memory (band 6700, cols 216)", 2, 24, 6760, 6700, "random"),
+)
 
 
 def _all_kernels():
@@ -1574,7 +1600,8 @@ def _banded_inputs(r_np, f_np, band: int, tile: int | None, dev):
             band_offsets(m_pad, m, n, band))
 
 
-def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, timed=None) -> int:
+def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, timed=None,
+                 tile=BAND_TILE) -> int:
     """B5 and B6 against their plain versions on the card, every output
     with ``==``: scores at the score tile's padded rows, and (ptr, best,
     keep) under each tie flavor. ``timed`` collects one CUDA-event time of
@@ -1596,7 +1623,7 @@ def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, tim
     err = 0
     for alg in algs or Algorithm:
         key = "sw" if alg == Algorithm.SMITH_WATERMAN else "nw"
-        r, f, offs = _banded_inputs(r_np, f_np, band, BAND_TILE, dev)
+        r, f, offs = _banded_inputs(r_np, f_np, band, tile, dev)
         got = cuda_banded.score(r, f, offs, params, alg, band)
         want = plain_call(("score", key), lambda: plain_banded.banded_score(
             r, f, offs, params, alg, band))
@@ -1616,14 +1643,116 @@ def check_banded(label, r_np, f_np, params, band, dev, algs=None, ties=None, tim
     return err
 
 
+def _banded_regs() -> dict:
+    """Registers of each banded instantiation, from the builds' reports."""
+    from versalignlib_tpu_torch.ops import _build
+
+    regs = {}
+    for src in ("banded_score.cu", "banded_align.cu"):
+        for line in register_report(_build.library_path(src).with_suffix(".log").read_text()):
+            found = re.search(r"^(\S+): (\d+) registers", line)
+            if found:
+                regs[found.group(1)] = int(found.group(2))
+    return regs
+
+
+def banded_geometry(label: str, params, band: int, pairs: int, kinds=("score", "align"),
+                    canon_only: bool = False) -> list[str]:
+    """Each banded launch of ``pairs`` pairs at ``band`` under ``params``:
+    the instantiation, its registers, the dynamic shared memory of a block,
+    the blocks (4 pairs, a warp each) an SM holds at once (by registers,
+    allocated 256 a warp of 65536, and by shared memory, 233472 bytes with
+    1 KB reserved a block; at most 32 blocks, 64 warps) against the warps
+    launched per SM, where the rows live and whether T stays in registers
+    (cols <= 32) or each chunk's first pass is computed again."""
+    from versalignlib_tpu_torch.ops import cuda_banded as cb
+
+    regs = _banded_regs()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cols = cb.lane_cols(band)
+    smem = cb.shared_bytes(band, params)
+    mat = 0 if params.matrix is None else (
+        1 if 4 * params.sub_size ** 2 + params.sub_size <= cb.SMEM_TABLE_BYTES else 2)
+    where = "shared memory" if cb.rows_in_shared(band, params) else "device memory"
+    regs_mode = "T in registers" if cb.t_in_registers(band) else \
+        f"T recomputed, {-(-cols // cb.CHUNK_COLS)} chunks of {cb.CHUNK_COLS}"
+    out = []
+    for kind in kinds:
+        for local in (1, 0):
+            for canon in ((None,) if kind == "score" else ((1,) if canon_only else (1, 0))):
+                args = [local, int(params.affine)] + ([] if canon is None else [canon]) + \
+                    [mat, int(not cb.t_in_registers(band))]
+                inst = f"banded_{kind}_kernel<{','.join(map(str, args))}>"
+                per_warp = -(-regs.get(inst, 255) * 32 // 256) * 256
+                blocks = min(32, 65536 // (per_warp * cb.WARPS_PER_BLOCK),
+                             233472 // (smem + 1024))
+                out.append(f"{label}: {inst} {regs.get(inst, '?')} registers, {smem} B shared "
+                           f"a block, {blocks} blocks ({blocks * cb.WARPS_PER_BLOCK} warps) "
+                           f"resident per SM, {pairs / sms:.1f} warps launched per SM; band "
+                           f"{band}, cols {cols}, rows in {where}, {regs_mode}")
+    return out
+
+
+def _edge_reads(rng, params, b: int, m: int, n: int, band: int, kind: str):
+    """(reads, refs) of one ``BANDED_EDGES`` case."""
+    if kind == "ties":
+        return tie_batch(rng, b, m, n)
+    refs = codes_for(params, rng, b, n)
+    reads = codes_for(params, rng, b, m)
+    if kind == "padding":
+        reads[:] = 0
+    elif kind == "edge":
+        shift = band // 2
+        full = codes_for(params, rng, b // 2, n + m)
+        full = np.where(full == 0, np.uint8(1), full)
+        refs[:b // 2] = full[:, :n]
+        reads[:b // 2] = full[:, shift:shift + m]
+    return reads, refs
+
+
+def phase_banded_edges(rng, dev) -> dict:
+    """Every branch of B5 and B6 against its plain version at the edges of
+    the row layout (``BANDED_EDGES``), each launch's geometry printed;
+    returns the max abs error per kernel name (0). ``rng`` is a generator
+    of its own (``edge_rng``), so that the other phases' data does not
+    depend on this one."""
+    err: dict[str, int] = {}
+    for label, b, m, n, band, kind in BANDED_EDGES:
+        t0 = time.perf_counter()
+        for name, params in _param_sets().items():
+            r_np, f_np = _edge_reads(rng, params, b, m, n, band, kind)
+            e = check_banded(f"{name} {label}", r_np, f_np, params, band, dev, tile=16)
+            for k in ("banded_score", "banded_align"):
+                key = _kernel_name(k, params)
+                err[key] = max(err.get(key, 0), e)
+        for line in banded_geometry(label, _param_sets()["dna_affine_bwamem"], band, b):
+            log(f"[banded] launch: {line}")
+        log(f"[banded] banded_score.cu, banded_align.cu == plain  every set, SW, NW (fill: both "
+            f"flavors) B={b} {m}x{n} band {band}: {label} ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def edge_rng(seed: int):
+    """The generator of ``phase_banded_edges``, apart from the script's."""
+    return np.random.default_rng([seed, 8])
+
+
+def merge_errs(*errs: dict) -> dict:
+    """The max abs error per kernel name over several phases."""
+    out: dict[str, int] = {}
+    for e in errs:
+        for k, v in e.items():
+            out[k] = max(out.get(k, 0), v)
+    return out
+
+
 def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
     """Every branch of B5 and B6 against its plain version at BANDED_ODD,
     the wide bands of BANDED_WIDE, a BANDED_BIG_MATRIX matrix at
     BANDED_BIG_MATRIX_SHAPE, and the models' defaults at full length on
     BANDED_SLICE of the models' pairs. Returns the max abs error per kernel
     name (0), and the plain versions' times on the slice."""
-    from versalignlib_tpu_torch.ops.banded import band_offsets
-    from versalignlib_tpu_torch.ops.cuda_banded import max_step, rows_in_shared
+    from versalignlib_tpu_torch.ops.cuda_banded import rows_in_shared
     from versalignlib_tpu_torch.params import AlignmentParameters
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
@@ -1647,7 +1776,7 @@ def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
     # Rows in device memory: bands too wide for a block's shared memory.
     for name, b, m, n, band, algs in BANDED_WIDE:
         params = sets[name]
-        if rows_in_shared(band, max_step(band_offsets(m, m, n, band)), params):
+        if rows_in_shared(band, params):
             raise AssertionError(f"band {band} ({name}) keeps its rows in shared memory")
         t0 = time.perf_counter()
         checked(params, check_banded(
@@ -1880,6 +2009,8 @@ def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
     entries = []
     for pname, params in sets.items():
         gap, scoring = branch_of(params)
+        for line in banded_geometry(pname, params, BAND, BANDED_PAIRS, canon_only=True):
+            log(f"[banded] launch: {line}")
         for kind, source, replaces in (
                 ("banded_score", "banded_score.cu", "versalignlib_tpu/ops/banded.py:354"),
                 ("banded_align", "banded_align.cu", "versalignlib_tpu/ops/banded.py:710")):
@@ -1961,7 +2092,8 @@ def main() -> int:
             _build.library_path(src).with_suffix(".log").read_text())
         for line in lines:
             log(f"[build] {src} {line}")
-        if src in ("align.cu", "align_affine.cu", "search.cu"):
+        if src in ("align.cu", "align_affine.cu", "search.cu", "banded_score.cu",
+                   "banded_align.cu"):
             check_no_spills(src, lines)
         if src in ("align.cu", "align_affine.cu"):
             for line in fill_geometry(lines, ALIGN_PAIRS, sms):
@@ -1997,7 +2129,9 @@ def main() -> int:
     pairs = make_banded_pairs(rng, genome)
     log(f"[phase] banded data: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    edge_errs = phase_banded_edges(edge_rng(args.seed), dev)
     banded_errs, banded_plain = phase_banded_kernels_vs_plain(rng, dev, pairs)
+    banded_errs = merge_errs(edge_errs, banded_errs)
     log(f"[phase] banded kernels vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     banded_runs = phase_banded_models(rng, dev, pairs)

@@ -4,11 +4,11 @@
 
 Builds the two banded kernels (csrc/banded_score.cu, csrc/banded_align.cu),
 then runs chip_smoke's phases 8-11 on the data they are given there: every
-B5 / B6 branch against its plain version, the banded models on 1024 pairs
-of 16 kbp, ``map_long_reads`` against the 4.64 Mbp genome, and the kernels'
-times; it prints the same log lines and a ``{"kernels": [...]}`` line with
-the B5 and B6 entries. About 3.5-5 minutes, half of the whole script:
-the quick check after an edit of a banded source.
+B5 / B6 branch against its plain version (the row layout's edges first),
+the banded models on 1024 pairs of 16 kbp, ``map_long_reads`` against the
+4.64 Mbp genome, and the kernels' times; it prints the same log lines and a
+``{"kernels": [...]}`` line with the B5 and B6 entries. A few minutes: the
+quick check after an edit of a banded source.
 """
 
 from __future__ import annotations
@@ -42,7 +42,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     genome = cs.make_genome(rng)[1]
     pairs = cs.make_banded_pairs(rng, genome)
+    edge_errs = cs.phase_banded_edges(cs.edge_rng(args.seed), dev)
     errs, plain_ms = cs.phase_banded_kernels_vs_plain(rng, dev, pairs)
+    errs = cs.merge_errs(edge_errs, errs)
     runs = cs.phase_banded_models(rng, dev, pairs)
     longreads = cs.phase_long_reads(rng, genome)
     entries = cs.phase_banded_times(rng, dev, pairs, errs, plain_ms, runs, longreads)

@@ -2,7 +2,8 @@
 interleaved.
 
     python3 scripts/torch_kernel_ab.py DIR_A DIR_B [--pairs 10] [--out FILE]
-        [--kernels score.cu search.cu align.cu align_affine.cu]
+        [--kernels score.cu search.cu align.cu align_affine.cu banded_score.cu
+                   banded_align.cu]
 
 Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``.
 Its sources are built with the package's nvcc flags into ``build/ab/<i>/``
@@ -19,7 +20,10 @@ on: the one-vs-many kernel at each search path's launch shape
 coordinates); ``cuda_align.fill`` on 4096 pairs of 512 x 512 under the
 four parameter sets, SW and NW in both flavors, and at each aligning search
 path's align shape (``chip_smoke.search_align_pairs``), SW and NW,
-canonical flavor. Each round times every side once (CUDA-event median of 7
+canonical flavor. The banded kernels (``banded_score.cu``,
+``banded_align.cu``) run through each side's own ``ops/cuda_banded.py`` at
+the banded models' launch (1024 pairs of 16 kbp, band 512) under the four
+parameter sets, SW and NW (the fill in the canonical flavor). Each round times every side once (CUDA-event median of 7
 after a warm-up, wrapper included), the order reversed every other round,
 and every side's outputs must equal the first side's. Prints one line per
 case: each side's median over the rounds and its quartiles, and in how
@@ -54,8 +58,11 @@ KERNELS = {"score.cu": cuda_score.SCORE_KERNEL}
 #: the name of the source's kernel in it).
 OWN = {"search.cu": ("cuda_search", "SEARCH_KERNEL"),
        "align.cu": ("cuda_align", "ALIGN_KERNEL"),
-       "align_affine.cu": ("cuda_align", "AFFINE_KERNEL")}
+       "align_affine.cu": ("cuda_align", "AFFINE_KERNEL"),
+       "banded_score.cu": ("cuda_banded", "BANDED_SCORE_KERNEL"),
+       "banded_align.cu": ("cuda_banded", "BANDED_ALIGN_KERNEL")}
 FILLS = ("align.cu", "align_affine.cu")
+BANDED = ("banded_score.cu", "banded_align.cu")
 
 
 def own_wrapper(side: int, checkout: pathlib.Path, module: str):
@@ -119,6 +126,8 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
         for name, (params, r_np, f_np) in cs.search_align_pairs(data).items():
             (b, m), n = r_np.shape, f_np.shape[1]
             fills.append((f"{name} {b}x{m}x{n}", params, r_np, f_np, (TieBreak.DIAG_UP_LEFT,)))
+    if set(BANDED) & set(sources):
+        out += banded_cases(dev, sources, wrappers, rng)
     for label, params, r_np, f_np, ties in fills:
         source = cs._fill_source(params)
         if source not in sources:
@@ -136,6 +145,37 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
     return out
 
 
+def banded_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
+    """The banded kernels at the models' launch (``chip_smoke``: 1024 HiFi-like
+    pairs of 16 kbp, band 512) under the four parameter sets, SW and NW:
+    ``cuda_banded.score`` on the reads padded to the score tile, and
+    ``cuda_banded.fill`` in the canonical flavor."""
+    genome = cs.make_genome(rng)[1]
+    reads, refs = cs.make_banded_pairs(rng, genome)
+    out = []
+    for pname, params in cs._param_sets().items():
+        for source in BANDED:
+            if source not in sources:
+                continue
+            score = source == "banded_score.cu"
+            r, f, offs = cs._banded_inputs(reads, refs, cs.BAND, cs.BAND_TILE if score else None,
+                                           dev)
+            tie = TieBreak.DIAG_UP_LEFT
+            mrp = torch.from_numpy(
+                wrappers[0]["cuda_align"].last_valid_pos(reads, tie, params.matrix)).to(dev)
+            for alg in Algorithm:
+                name = f"{source} {pname} {r.shape[0]}x{r.shape[1]}x{f.shape[1]} band {cs.BAND}"
+                if score:
+                    call = (lambda i, r=r, f=f, o=offs, p=params, a=alg:
+                            wrappers[i]["cuda_banded"].score(r, f, o, p, a, cs.BAND))
+                else:
+                    call = (lambda i, r=r, f=f, o=offs, m=mrp, p=params, a=alg:
+                            tuple(x for x in wrappers[i]["cuda_banded"].fill(
+                                r, f, o, m, p, a, tie, cs.BAND) if x is not None))
+                out.append((f"{name} {alg.name}", source, call))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkouts", nargs="+", type=pathlib.Path)
@@ -148,6 +188,8 @@ def main() -> int:
         ap.error("--pairs must be at least 2 (quartiles)")
     checkouts = [c.resolve() for c in args.checkouts]
     modules = {OWN[s][0] for s in args.kernels if s in OWN}
+    if set(BANDED) & set(args.kernels):
+        modules.add("cuda_align")   # last_valid_pos
     wrappers = [{mod: own_wrapper(i, c, mod) for mod in modules}
                 for i, c in enumerate(checkouts)]
 

@@ -15,6 +15,12 @@ search and NW row-mrp code, so its count per cell is an upper bound; in
 ``search.cu`` it is a stripe's step loop, one row of a lane's kCols columns
 (the instantiation's last template argument) per iteration. A stripe whose
 last lane is partial runs a second copy of that loop with a select a cell;
+in the banded kernels (``banded_score.cu``, ``banded_align.cu``) it is the
+row loop of the register path (band <= 1024, the last template argument
+0; ``banded.cuh``): both passes over a lane's 32 columns, unrolled, and the
+scan between them, so its count a cell also carries the row's scan and
+bookkeeping, and where the band is 512 half the unrolled columns run (the
+wide path, argument 1, loops over chunks of 32 columns);
 ``inner_loops`` lists the instructions of every innermost loop. For that loop it gives the opcodes, the instructions
 per cell (loop instructions / rows / columns) and their split by the pipe
 that issues them, as the Nsight Compute profiling guide
@@ -41,10 +47,13 @@ from versalignlib_tpu_torch.ops import _build  # noqa: E402
 
 #: DP columns per hot-loop iteration of each source: a lane's 16 columns in
 #: the fills (fill.cuh, kCols), an even and an odd column in the shared
-#: score loop (common.cuh, score_sweep); and the read rows of the fills'
-#: iteration (the score loops take ``--rows``).
-COLUMNS = {"align.cu": 16, "align_affine.cu": 16, "score.cu": 2}
-ROWS = {"align.cu": 1, "align_affine.cu": 1, "search.cu": 1}
+#: score loop (common.cuh, score_sweep), a chunk of 32 band columns in the
+#: banded kernels (banded.cuh, kChunk); and the read rows of the fills' and
+#: banded kernels' iteration (the score loops take ``--rows``).
+COLUMNS = {"align.cu": 16, "align_affine.cu": 16, "score.cu": 2, "banded_score.cu": 32,
+           "banded_align.cu": 32}
+ROWS = {"align.cu": 1, "align_affine.cu": 1, "search.cu": 1, "banded_score.cu": 1,
+        "banded_align.cu": 1}
 
 
 def columns(source: str, func: str) -> int:
@@ -99,6 +108,7 @@ def hot_loop(insns: list[tuple[int, str, str]], rows: int, cols: int = 1) -> dic
     return {"instructions": len(body), "cells": cells,
             "per_cell": len(body) / cells,
             "per_cell_by_pipe": {k: v / cells for k, v in pipes.most_common()},
+            "shared_per_cell": {op: mix[op] / cells for op in ("LDS", "STS")},
             "inner_loops": sizes,
             "opcodes": dict(mix.most_common())}
 

@@ -236,12 +236,14 @@ def test_plans_and_rounds():
     assert cuda_banded.chunk_pairs_for(100_000, 512, 132) == 94
     assert cuda_banded.chunk_pairs_for(100_000, 100_000, 132) == 1
     p = _SETS["dna_linear"][1]
-    assert cuda_banded.rows_in_shared(512, 1, p)
-    assert not cuda_banded.rows_in_shared(16000, 1, p)
-    plan = cuda_banded.banded_mem_plan(100, 120, 64, 2, 10, p)
-    assert plan == 10 * (220 + 4 * 100 * 8 + 16 + 4 * 64 + 4) + 400
-    wide = cuda_banded.banded_mem_plan(100, 16000, 16000, 160, 10, p, "score")
-    assert wide == 10 * (16100 + 4 * 2 * 16161 + 4) + 400
+    assert cuda_banded.rows_in_shared(512, p)
+    assert not cuda_banded.rows_in_shared(16000, p)
+    # The refs are copied with 16 bytes of padding; rows in device memory
+    # are 34 words a slot and 505 slots (csrc/banded.cuh) at 16000.
+    plan = cuda_banded.banded_mem_plan(100, 120, 64, 10, p)
+    assert plan == 10 * (100 + 2 * 120 + 4 * 100 * 8 + 16 + 4 * 64 + 4) + 400 + 16
+    wide = cuda_banded.banded_mem_plan(100, 16000, 16000, 10, p, "score")
+    assert wide == 10 * (100 + 2 * 16000 + 4 * 2 * 34 * 505 + 4) + 400 + 16
 
 
 @pytest.mark.parametrize("name", ["banded_smith_waterman", "banded_needleman_wunsch"])

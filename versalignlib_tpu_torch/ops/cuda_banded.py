@@ -19,7 +19,7 @@ import torch
 
 from versalignlib_tpu_torch.ops import plain_banded
 from versalignlib_tpu_torch.ops._build import CudaKernel
-from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK, max_step
+from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK
 from versalignlib_tpu_torch.ops.cuda_score import check_codes, matrix_tables
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, TieBreak
@@ -30,17 +30,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: The banded score kernel (B5); ``BANDED_SCORE_KERNEL.launches`` counts its
 #: launches.
 BANDED_SCORE_KERNEL = CudaKernel(
-    "banded_score.cu", "val_banded_score_launch", [_P] * 7 + [_I] * 15 + [_P])
+    "banded_score.cu", "val_banded_score_launch", [_P] * 7 + [_I] * 14 + [_P])
 
 #: The banded pointer-fill kernel (B6), with its own launch count.
 BANDED_ALIGN_KERNEL = CudaKernel(
-    "banded_align.cu", "val_banded_align_launch", [_P] * 10 + [_I] * 16 + [_P])
+    "banded_align.cu", "val_banded_align_launch", [_P] * 10 + [_I] * 15 + [_P])
 
 #: Pairs per block (one warp each) and the shared memory a block may take
 #: on an H100 (csrc/banded.cuh kWarps; 227 KB).
 WARPS_PER_BLOCK = 4
 SHARED_LIMIT = 232448
 SMEM_TABLE_BYTES = 48 << 10   # csrc/common.cuh kSmemTableBytes
+#: The row layout of csrc/banded.cuh: words per slot row (lanes -1 .. 32,
+#: kSlot), the columns a lane holds in registers (kChunk), the shared bytes
+#: of the DNA table (kDnaWords), and the bytes the kernels may read past a
+#: pair's ref (a lane's last pointer word), which the wrapper pads.
+SLOT_WORDS = 34
+CHUNK_COLS = 32
+DNA_TABLE_BYTES = 4 * 2 * 5 * 256
+REF_PAD = 16
 
 
 def lane_cols(band: int) -> int:
@@ -49,51 +57,91 @@ def lane_cols(band: int) -> int:
     return -(-(-(-band // 32)) // BAND_PACK) * BAND_PACK
 
 
-def _row_words(band: int, d: int, affine: bool) -> int:
-    return (4 if affine else 2) * (band + d + 1)
+def row_word(lane: int, slot: int) -> int:
+    """The word of a row that holds lane ``lane``'s column ``slot``, 0 ..
+    cols (csrc/banded.cuh word_of): lane -1's slot cols-1 is the boundary,
+    lane 32 reads -inf, and slot cols repeats lane + 1's slot 0."""
+    return slot * SLOT_WORDS + lane + 1
 
 
-def rows_in_shared(band: int, d: int, params: AlignmentParameters) -> bool:
+def read_word(lane: int, t: int, s: int, cols: int) -> int:
+    """The word lane ``lane`` reads for P(t), band column lane*cols + s - 1
+    + t of the row above, on a row of step ``s`` (csrc/banded.cuh Step)."""
+    q, r = divmod(s - 1, cols)
+    wrap = 1 if s == 0 else cols - r + 1
+    if t < wrap:
+        return row_word(min(lane + q, 32), r + t)
+    return row_word(min(lane + q + 1, 32), r + t - cols)
+
+
+def t_in_registers(band: int) -> bool:
+    """Whether a lane's columns fit the registers of one pass (cols <=
+    CHUNK_COLS, band <= 1024); wider bands compute each chunk's first pass
+    again in the second."""
+    return lane_cols(band) <= CHUNK_COLS
+
+
+def _row_words(cols: int, affine: bool) -> int:
+    return (4 if affine else 2) * SLOT_WORDS * (cols + 1)
+
+
+def _table_bytes(params: AlignmentParameters) -> int:
+    """Shared bytes in front of the rows (csrc/banded.cuh table_words_of):
+    the DNA table, a matrix copied there, or 0 for a matrix read through the
+    read-only cache."""
+    if params.matrix is None:
+        return DNA_TABLE_BYTES
+    s = params.sub_size
+    return (4 * s * s + s + 15) // 16 * 16 if 4 * s * s + s <= SMEM_TABLE_BYTES else 0
+
+
+def rows_in_shared(band: int, params: AlignmentParameters) -> bool:
     """Whether a block's rows (and a matrix of up to 48 KB) fit its shared
     memory; wider bands keep their rows in device memory."""
-    table = 0
-    if params.matrix is not None:
-        s = params.sub_size
-        if 4 * s * s + s <= SMEM_TABLE_BYTES:
-            table = (4 * s * s + s + 15) // 16 * 16
-    return table + 4 * WARPS_PER_BLOCK * _row_words(band, d, params.affine) <= SHARED_LIMIT
+    rows = 4 * WARPS_PER_BLOCK * _row_words(lane_cols(band), params.affine)
+    return _table_bytes(params) + rows <= SHARED_LIMIT
 
 
-def banded_mem_plan(m: int, n: int, band: int, d: int, batch: int,
+def shared_bytes(band: int, params: AlignmentParameters) -> int:
+    """Dynamic shared memory of one block of a launch (csrc/banded.cuh
+    shared_bytes)."""
+    rows = 4 * WARPS_PER_BLOCK * _row_words(lane_cols(band), params.affine)
+    return _table_bytes(params) + (rows if rows_in_shared(band, params) else 0)
+
+
+def banded_mem_plan(m: int, n: int, band: int, batch: int,
                     params: AlignmentParameters, kind: str = "align") -> int:
     """Device bytes one launch of ``batch`` pairs of m x n allocates:
-    the codes, the band starts, the rows when they do not fit shared memory,
-    and the outputs: scores (``kind`` "score"), or the pointer words, SW
-    best, NW keep and mrp ("align")."""
-    rows = 0 if rows_in_shared(band, d, params) else 4 * _row_words(band, d, params.affine)
-    per_pair = m + n + rows
+    the codes, the padded copy of the refs, the band starts, the rows when
+    they do not fit shared memory, and the outputs: scores (``kind``
+    "score"), or the pointer words, SW best, NW keep and mrp ("align")."""
+    rows = 0 if rows_in_shared(band, params) else 4 * _row_words(lane_cols(band),
+                                                                 params.affine)
+    per_pair = m + 2 * n + rows
     if kind == "score":
         per_pair += 4
     else:
         per_pair += 4 * m * -(-band // BAND_PACK) + 16 + 4 * band + 4
-    return batch * per_pair + 4 * m
+    return batch * per_pair + 4 * m + REF_PAD
 
 
 def _common_args(reads, refs, offsets, band, params, dev):
-    """Device copies and launch arguments shared by both kernels."""
+    """Device copies and launch arguments shared by both kernels: the refs
+    copied with REF_PAD bytes after them."""
     b, m = reads.shape
     n = refs.shape[1]
     offs = torch.as_tensor(np.asarray(offsets, dtype=np.int32)).to(dev)
-    d = max_step(np.asarray(offsets))
     scratch = None
-    if not rows_in_shared(band, d, params):
-        scratch = torch.empty((b, _row_words(band, d, params.affine)), dtype=torch.int32,
-                              device=dev)
+    if not rows_in_shared(band, params):
+        scratch = torch.empty((b, _row_words(lane_cols(band), params.affine)),
+                              dtype=torch.int32, device=dev)
     table = valid = None
     if params.matrix is not None:
         table, valid = matrix_tables(params.matrix, 0, dev)
-    ptrs = (reads.contiguous(), refs.contiguous(), offs, scratch, table, valid)
-    ints = (b, m, n, band, d, lane_cols(band), params.sub_size, params.score_match,
+    padded = torch.zeros(b * n + REF_PAD, dtype=torch.uint8, device=dev)
+    padded[:b * n] = refs.reshape(-1)
+    ptrs = (reads.contiguous(), padded, offs, scratch, table, valid)
+    ints = (b, m, n, band, lane_cols(band), params.sub_size, params.score_match,
             params.score_mismatch, params.score_gap_read, params.score_gap_ref,
             params.gap_open_read, params.gap_open_ref)
     return ptrs, ints
@@ -121,8 +169,8 @@ def score(reads: torch.Tensor, refs: torch.Tensor, offsets: np.ndarray,
     if reads.device.type == "cpu":
         return plain_banded.banded_score(reads, refs, offsets, params, algorithm, band)
     b, m = reads.shape
-    check_banded_budget(banded_mem_plan(m, refs.shape[1], band, max_step(offsets), b,
-                                        params, "score"), reads.device)
+    check_banded_budget(banded_mem_plan(m, refs.shape[1], band, b, params, "score"),
+                        reads.device)
     out = torch.empty(b, dtype=torch.int32, device=reads.device)
     if b == 0:
         return out
@@ -150,8 +198,7 @@ def fill(reads: torch.Tensor, refs: torch.Tensor, offsets: np.ndarray,
     b, m = reads.shape
     dev = reads.device
     local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
-    check_banded_budget(banded_mem_plan(m, refs.shape[1], band, max_step(offsets), b,
-                                        params), dev)
+    check_banded_budget(banded_mem_plan(m, refs.shape[1], band, b, params), dev)
     ptr = torch.empty((b, m, -(-band // BAND_PACK)), dtype=torch.int32, device=dev)
     best = torch.empty((b, 4), dtype=torch.int32, device=dev) if local else None
     keep = None if local else torch.empty((b, band), dtype=torch.int32, device=dev)
