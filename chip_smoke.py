@@ -16,16 +16,27 @@ Phases (any failure exits non-zero before a result is printed):
 
 1. card: name and power limit, torch and CUDA versions; build every kernel
    of ``versalignlib_tpu_torch/csrc`` (one nvcc per source, in parallel) and
-   print each instantiation's registers and spills (a spill in the fills, the
-   one-vs-many kernel or the banded kernels fails the run), and the fills' launch geometry
-   at 4096 pairs (the one-vs-many kernel's at each search launch, with its
-   memory plan, once the search data is made: ``search_geometry``);
+   print each instantiation's registers and spills (a spill in any kernel
+   fails the run), the fills' launch geometry at 4096 pairs, the score
+   kernel's at each main-path launch and at the deep edge
+   (``score_geometry``: instantiation, registers, warps launched and
+   resident per SM, shared memory, memory plan), and the one-vs-many
+   kernel's at each search launch, with its memory plan, once the search
+   data is made (``search_geometry``);
 2. every branch of every kernel against its plain PyTorch version on the
    card, with ``==`` (tolerance 0: every output is an integer): at the main
    path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
    x 512), at an odd shape whose ref length leaves a partial pointer word
-   (150 x 509), and under a random 200 x 200 matrix, too large for shared
-   memory, at a small shape; then both fills at the edges of their
+   (150 x 509), and under a random 200 x 200 matrix at a small shape (the
+   fills read it through the read-only cache, the score kernel from shared
+   memory past the 48 KB default); then the score kernel at the edges of
+   its lane groups (``phase_score_edges``: ``SCORE_EDGE_M`` x
+   ``SCORE_EDGE_N`` at both column widths, DNA at and past the byte
+   tables' limits, a 30 x 30 matrix, 200 x 200 and 250 x 250 matrices,
+   linear and affine, SW and NW, tie-heavy periodic and all-padding pairs,
+   an NW batch clamped at 0, 4000-row reads whose affine boundary columns
+   live in device memory, one pair, B not a multiple of 8; its own
+   generator, so the other phases' data do not depend on it); both fills at the edges of their
    wavefront (``FILL_EDGE_SHAPES``: refs of three stripes and of two and a
    partial one, 20 read rows, a ref of 9 columns; ``TIE_SHAPE``: periodic
    reads and refs whose SW maximum recurs across lanes and stripes, reads of
@@ -39,9 +50,13 @@ Phases (any failure exits non-zero before a result is printed):
    set's run and read just after: the kernels of its path must have
    launched, and the other fill kernel must not;
 4. times with CUDA events after a warm-up, the median of 7 runs with min and
-   max, for each branch: the kernel, its plain version, the bound, and the
-   split of ``compute_alignments(raw=True)`` into device fill,
-   device-to-host copy and host decode;
+   max, for each branch: the kernel, its plain version, the bound, the
+   split of ``score_alignments`` into host-to-device copy, kernel,
+   device-to-host copy and the rest, each timed inside the same calls
+   (``score_wall_split``; logged, not in the ``kernels`` line), and the
+   split of
+   ``compute_alignments(raw=True)`` into device fill, device-to-host copy
+   and host decode;
 5. every branch of the one-vs-many kernel against its plain version with
    ``==``: at each search path's launch shape, on a slice of its queries at
    the full pool size; at odd shapes (m, n not multiples of 16) in both
@@ -188,6 +203,18 @@ BIG_MATRIX_SHAPE = (512, 64, 77)
 #: or of padding (mrp < 0 in one flavor or both).
 FILL_EDGE_SHAPES = ((128, 150, 1536), (128, 200, 1100), (256, 20, 512), (256, 64, 9))
 TIE_SHAPE = (256, 96, 1100)
+#: The edges of the score kernel (csrc/score.cu: 16 lanes a pair, 32 or 40
+#: columns a lane, 8 pairs a block): read rows of one, fewer than the lanes,
+#: just more and two lanes' worth plus one; refs narrower than a lane, one
+#: column short of, at and past a 32-column stripe, a 40-column stripe and
+#: a partial third stripe. Each is run at both widths on SCORE_EDGE_PAIRS
+#: pairs (not a multiple of 8), and the tie-heavy batch at SCORE_TIE_SHAPE.
+#: SCORE_EDGE_DEEP reads are too deep for a block's affine boundary columns
+#: in shared memory.
+SCORE_EDGE_M, SCORE_EDGE_N = (1, 15, 17, 33), (9, 511, 512, 513, 640, 1100)
+SCORE_EDGE_PAIRS = 13
+SCORE_TIE_SHAPE = (64, 33, 1100)
+SCORE_EDGE_DEEP = (4000, 1100)
 
 #: The search paths' sizes. map_reads: SEARCH_READS Illumina reads of
 #: READ_LEN bp against SEARCH_PANEL entries of PANEL_LEN bp (16S-gene
@@ -332,6 +359,24 @@ def register_report(log_text: str) -> list[str]:
             regs = re.search(r"Used (\d+) registers", line)
             out.append(f"{kernel}: {regs.group(1) if regs else '?'} registers, {spill}")
     return out
+
+
+def registers(lines: list[str]) -> dict[str, int]:
+    """Registers by instantiation, from ``register_report`` lines."""
+    out = {}
+    for line in lines:
+        found = re.search(r"^(\S+): (\d+) registers", line)
+        if found:
+            out[found.group(1)] = int(found.group(2))
+    return out
+
+
+def resident_blocks(regs: int, smem: int) -> int:
+    """Blocks of 128 threads an SM holds at once: by registers (65536 an SM,
+    allocated 256 a warp) and by shared memory (233472 bytes, 1 KB reserved
+    a block); at most 16 blocks."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(16, (65536 // per_warp) // 4, 233472 // (smem + 1024))
 
 
 def check_no_spills(source: str, lines: list[str]) -> None:
@@ -551,6 +596,135 @@ def phase_fill_edges(rng, dev) -> dict:
     return err
 
 
+def phase_score_edges(rng, dev) -> dict:
+    """The score kernel against its plain version with ``==`` at the edges
+    of its lane groups (SCORE_EDGE_M x SCORE_EDGE_N at both column widths,
+    SCORE_EDGE_PAIRS pairs): default DNA (byte tables; scores at the byte's
+    limits; scores past a byte, through the 6 x 6 matrix) and a 30 x 30
+    matrix, linear and affine, SW and NW; then a 200 x 200 matrix (160 KB,
+    in shared memory past the 48 KB default) and a 250 x 250 one (through
+    the read-only cache), the tie-heavy periodic batch with all-N and
+    all-padding reads, an NW batch that clamps at 0, SCORE_EDGE_DEEP reads
+    whose affine boundary columns live in device memory (linear: in shared
+    memory past 48 KB), one pair, and blocks past B. Returns the max abs
+    error per kernel name (0)."""
+    from versalignlib_tpu_torch.ops import cuda_score, plain
+    from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
+    from versalignlib_tpu_torch.params import AlignmentParameters
+    from versalignlib_tpu_torch.types import Algorithm
+
+    err: dict[str, int] = {}
+
+    def hold(label, params, r_np, f_np, algs=tuple(Algorithm)):
+        r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+        f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+        key = _kernel_name("score", params)
+        for alg in algs:
+            err[key] = max(err.get(key, 0), check_equal(
+                f"score.cu {key} {label} {alg.name}", score_batch_device(r, f, params, alg),
+                plain.score_batch(r, f, params, alg)))
+
+    mat = _random_matrix(rng, 30)
+    sets = (("dna linear", AlignmentParameters(score_gap_read=-2, score_gap_ref=-3), 4),
+            ("dna affine", AlignmentParameters(gap_open_read=-5, gap_open_ref=-4), 4),
+            ("dna byte limits", AlignmentParameters(score_match=127, score_mismatch=-128,
+                                                    score_gap_read=-60, score_gap_ref=-70), 4),
+            ("dna past a byte", AlignmentParameters(score_match=300, score_mismatch=-200,
+                                                    score_gap_read=-7, score_gap_ref=-5,
+                                                    gap_open_read=-40, gap_open_ref=-30), 4),
+            ("matrix linear", AlignmentParameters(score_gap_read=-3, score_gap_ref=-2,
+                                                  matrix=mat), 30),
+            ("matrix affine", AlignmentParameters(score_gap_read=-1, score_gap_ref=-2,
+                                                  gap_open_read=-3, gap_open_ref=-4,
+                                                  matrix=mat), 30))
+    t0 = time.perf_counter()
+    b = SCORE_EDGE_PAIRS
+    for m in SCORE_EDGE_M:
+        for n in SCORE_EDGE_N:
+            for label, params, size in sets:
+                # Periodic reads and refs (maxima that recur across lanes and
+                # stripes), random codes past S, and padding alone.
+                r_np = _periodic_pool(rng, b, m, size)
+                f_np = _periodic_pool(rng, b, n, size)
+                for cols in (32, 40):
+                    with _search_width(cols):
+                        hold(f"{label} B={b} {m}x{n} {cols} cols", params, r_np, f_np)
+    for s in (200, 250):
+        big = _random_matrix(rng, s)
+        for label, params in (
+                ("linear", AlignmentParameters(score_gap_read=-3, score_gap_ref=-2,
+                                               matrix=big)),
+                ("affine", AlignmentParameters(score_gap_read=-1, score_gap_ref=-2,
+                                               gap_open_read=-3, gap_open_ref=-4,
+                                               matrix=big))):
+            hold(f"{s} x {s} matrix {label} B={b} 33x1100", params,
+                 _pad_tail(rng, rng.integers(1, s + 10, size=(b, 33)).astype(np.uint8)),
+                 _pad_tail(rng, rng.integers(1, s + 10, size=(b, 1100)).astype(np.uint8)))
+    lin, aff = sets[0][1], sets[1][1]
+    for params in (lin, aff):
+        gap = "affine" if params.affine else "linear"
+        hold(f"ties {gap} {'x'.join(map(str, SCORE_TIE_SHAPE))}", params,
+             *tie_batch(rng, *SCORE_TIE_SHAPE))
+        hold(f"one pair {gap} 1x17x640", params, random_codes(rng, 1, 17),
+             random_codes(rng, 1, 640))
+        m, n = SCORE_EDGE_DEEP
+        where = "device" if cuda_score.launch_plan(m, n, params.affine).edge_in_device else "shared"
+        if where != ("device" if params.affine else "shared"):
+            raise AssertionError(f"the deep {gap} shape keeps its boundary in {where} memory")
+        hold(f"deep {gap} B=3 {m}x{n}, boundary in {where} memory", params,
+             random_codes(rng, 3, m), random_codes(rng, 3, n))
+    # NW overlap scores that clamp at 0: every cell a mismatch or a gap.
+    reads = np.full((b, 33), 1, np.uint8)
+    refs = np.full((b, 1100), 2, np.uint8)
+    if bool((plain.score_batch(torch.from_numpy(reads), torch.from_numpy(refs), lin,
+                               Algorithm.NEEDLEMAN_WUNSCH) != 0).any()):
+        raise AssertionError("the NW clamp batch does not clamp")
+    for cols in (32, 40):
+        with _search_width(cols):
+            hold(f"NW clamp {cols} cols", lin, reads, refs, (Algorithm.NEEDLEMAN_WUNSCH,))
+    torch.cuda.synchronize()
+    log(f"[kernels] score.cu == plain  edges: m {SCORE_EDGE_M} x n {SCORE_EDGE_N} x 32, 40 "
+        f"cols, {len(sets)} scorings, 200 and 250 matrices, ties, one pair, deep reads, NW "
+        f"clamp: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def score_geometry(lines: list[str], sms: int) -> list[str]:
+    """Each launch of the score kernel at the main path's shape (SCORE_PAIRS
+    pairs of LENGTH x LENGTH) under the four parameter sets, and at the deep
+    edge: the instantiation it runs (kLocal, kAffine, kSub, kCols),
+    its registers, the ref columns a lane owns and the stripes, the blocks
+    (128 threads, 8 pairs) and warps launched per SM, the blocks and warps
+    an SM holds at once (by registers, allocated 256 a warp of 65536, and by
+    shared memory, 233472 bytes with 1 KB reserved a block; at most 16
+    blocks, 64 warps), and the dynamic shared memory of a block, all as
+    the wrapper's ``cuda_score.launch_plan`` chooses them."""
+    from versalignlib_tpu_torch.ops import cuda_score as cs_
+    from versalignlib_tpu_torch.ops import cuda_search as cu
+    from versalignlib_tpu_torch.params import AlignmentParameters
+
+    regs = registers(lines)
+    launches = [(name, params, SCORE_PAIRS, LENGTH, LENGTH)
+                for name, params in _param_sets().items()]
+    launches.append(("deep affine edge", AlignmentParameters(gap_open_read=-5, gap_open_ref=-4),
+                     3, *SCORE_EDGE_DEEP))
+    out = []
+    for name, params, b, m, n in launches:
+        cols, stripes, sub, smem, _ = cs_.launch_plan(
+            m, n, params.affine, None if cu.dna_fits_bytes(params) else params.sub_size)
+        blocks = -(-b // cu.PAIRS_PER_BLOCK)
+        for local in (1, 0):
+            inst = f"score_kernel<{local},{int(params.affine)},{sub},{cols}>"
+            resident = resident_blocks(regs.get(inst, 255), smem)
+            out.append(f"{name} {'SW' if local else 'NW'}: {inst} {regs.get(inst, '?')} "
+                       f"registers; {b} pairs of {m}x{n}, {cols} cols a lane, {stripes} "
+                       f"stripe(s); {blocks} blocks, {4 * blocks / sms:.1f} warps launched per "
+                       f"SM, {resident} blocks ({4 * resident} warps) resident per SM; {smem} B "
+                       f"shared a block; mem plan "
+                       f"{cs_.score_mem_plan(m, n, b, params.affine) / 2**20:.1f} MiB")
+    return out
+
+
 def _same_alignment(x, y) -> bool:
     return (x.read, x.ref, x.score, x.cigar, x.read_start, x.read_end,
             x.ref_start, x.ref_end, x.buffer_start, x.buffer_end) == \
@@ -660,6 +834,7 @@ def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
         entries.append(_entry(key, name, "versalignlib_tpu_torch/csrc/score.cu",
                               "versalignlib_tpu/ops/pallas_score.py:219",
                               main[name]["launches"]["score"], errs[key], (b, m, n), t))
+        score_wall_split(name, params, r.cpu().numpy(), f.cpu().numpy())
 
         b = ALIGN_PAIRS
         r_np = codes_for(params, rng, b, m)
@@ -727,6 +902,79 @@ def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
         entries[-1]["compute_alignments_split"] = split
         entries[-1]["sse_flavor_ms"] = sse
     return entries
+
+
+def score_wall_split(name: str, params, r_np: np.ndarray, f_np: np.ndarray) -> dict:
+    """``AlignmentEngine.score_alignments`` on the (B, m), (B, n) codes
+    ``r_np``, ``f_np``, SW and NW, each of REPS calls split as it
+    runs. CUDA events on the stream, recorded when the backend's scorer
+    starts, when ``cuda_score.score_batch_device`` starts and returns and
+    when the scorer returns, time its host-to-device copy of both code
+    arrays (copies from pageable memory, which the host waits for), the
+    kernel (the wrapper's host work and the launch included) and the
+    device-to-host copy of the scores; the host clock times the wall and
+    the rest (encoding checks and the memory-plan gate before the scorer,
+    the numpy view after it). Every part is a time measured in the call;
+    ``parts_ms``, their sum, misses the call's wall only by the host's
+    microseconds between a clock read and an event record. Logs and
+    returns the medians of each over the calls."""
+    from versalignlib_tpu_torch import AlignmentEngine
+    from versalignlib_tpu_torch.ops import cuda_score
+    from versalignlib_tpu_torch.types import Algorithm
+
+    engine = AlignmentEngine(params)
+    backend, kernel = engine.backend, cuda_score.score_batch_device
+    scorer = backend._scorer
+    marks: dict[str, tuple] = {}
+
+    def mark(key):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks[key] = (event, time.perf_counter())
+
+    def timed_kernel(*args):
+        mark("kernel")
+        out = kernel(*args)
+        mark("kernel_end")
+        return out
+
+    def timed_scorer(*args):
+        mark("scorer")
+        out = scorer(*args)
+        mark("scorer_end")
+        return out
+
+    def ms(a, b):
+        return marks[a][0].elapsed_time(marks[b][0])
+
+    cuda_score.score_batch_device, backend._scorer = timed_kernel, timed_scorer
+    out = {}
+    try:
+        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+            engine.score_alignments(alg, r_np, f_np)
+            calls = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.score_alignments(alg, r_np, f_np)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                call = {"wall_ms": 1e3 * (t1 - t0), "h2d_ms": ms("scorer", "kernel"),
+                        "kernel_ms": ms("kernel", "kernel_end"),
+                        "d2h_ms": ms("kernel_end", "scorer_end"),
+                        "rest_ms": 1e3 * (marks["scorer"][1] - t0 + t1 - marks["scorer_end"][1])}
+                call["parts_ms"] = sum(
+                    call[k] for k in ("h2d_ms", "kernel_ms", "d2h_ms", "rest_ms"))
+                calls.append(call)
+            out[key] = {k: float(np.median([c[k] for c in calls])) for k in calls[0]}
+            out[key]["wall_min_ms"] = min(c["wall_ms"] for c in calls)
+            out[key]["wall_max_ms"] = max(c["wall_ms"] for c in calls)
+            log(f"[times] score_alignments {name} {key} B={r_np.shape[0]} "
+                f"{r_np.shape[1]}x{f_np.shape[1]}, medians of {REPS} calls: "
+                + json.dumps({k: round(v, 3) for k, v in out[key].items()}))
+    finally:
+        cuda_score.score_batch_device, backend._scorer = kernel, scorer
+    return out
 
 
 def _entry(name, params_name, source, replaces, launches, err, shape, t) -> dict:
@@ -928,11 +1176,7 @@ def search_geometry(data, lines: list[str], sms: int) -> list[str]:
     a thread per pair kept in device memory before."""
     from versalignlib_tpu_torch.ops import cuda_search as cu
 
-    regs = {}
-    for line in lines:
-        found = re.search(r"^(\S+): (\d+) registers", line)
-        if found:
-            regs[found.group(1)] = int(found.group(2))
+    regs = registers(lines)
     out = []
     for name, (params, queries, pool, kind) in search_launches(data).items():
         affine = params.affine
@@ -962,8 +1206,7 @@ def search_geometry(data, lines: list[str], sms: int) -> list[str]:
         algs = [(1, int(kind == "profile"))] + [(0, 0)]
         for local, coords in algs:
             inst = f"search_kernel<{local},{int(affine)},{coords},{sub},{cols}>"
-            per_warp = -(-regs.get(inst, 255) * 32 // 256) * 256
-            resident = min(16, (65536 // per_warp) // 4, 233472 // (smem + 1024))
+            resident = resident_blocks(regs.get(inst, 255), smem)
             out.append(f"{name} {'SW' if local else 'NW'}: {inst} {regs.get(inst, '?')} "
                        f"registers; {k} queries x {r} pool, {m}x{n}, {cols} cols a lane, {stripes} "
                        f"stripe(s); {blocks} blocks, {4 * blocks / sms:.1f} warps launched "
@@ -1080,9 +1323,10 @@ def phase_search_kernels_vs_plain(rng, dev, data) -> tuple[dict, dict]:
 
 @contextlib.contextmanager
 def _search_width(cols: int):
-    """While active, every launch of the one-vs-many kernel gives each lane
-    ``cols`` ref columns, whatever ``cuda_search.search_cols`` would choose
-    (the output does not depend on it)."""
+    """While active, every launch of the one-vs-many kernel and of the score
+    kernel gives each lane ``cols`` ref columns, whatever
+    ``cuda_search.search_cols`` would choose (the output does not depend on
+    it)."""
     from versalignlib_tpu_torch.ops import cuda_search
 
     chosen = cuda_search.search_cols
@@ -1649,10 +1893,8 @@ def _banded_regs() -> dict:
 
     regs = {}
     for src in ("banded_score.cu", "banded_align.cu"):
-        for line in register_report(_build.library_path(src).with_suffix(".log").read_text()):
-            found = re.search(r"^(\S+): (\d+) registers", line)
-            if found:
-                regs[found.group(1)] = int(found.group(2))
+        regs.update(registers(register_report(
+            _build.library_path(src).with_suffix(".log").read_text())))
     return regs
 
 
@@ -1732,9 +1974,10 @@ def phase_banded_edges(rng, dev) -> dict:
     return err
 
 
-def edge_rng(seed: int):
-    """The generator of ``phase_banded_edges``, apart from the script's."""
-    return np.random.default_rng([seed, 8])
+def edge_rng(seed: int, stream: int = 8):
+    """The generator of an edge phase, apart from the script's: stream 8
+    for ``phase_banded_edges``, 9 for ``phase_score_edges``."""
+    return np.random.default_rng([seed, stream])
 
 
 def merge_errs(*errs: dict) -> dict:
@@ -2092,17 +2335,18 @@ def main() -> int:
             _build.library_path(src).with_suffix(".log").read_text())
         for line in lines:
             log(f"[build] {src} {line}")
-        if src in ("align.cu", "align_affine.cu", "search.cu", "banded_score.cu",
-                   "banded_align.cu"):
-            check_no_spills(src, lines)
+        check_no_spills(src, lines)
         if src in ("align.cu", "align_affine.cu"):
             for line in fill_geometry(lines, ALIGN_PAIRS, sms):
                 log(f"[build] {src} launch: {line}")
+    for line in score_geometry(reg_lines["score.cu"], sms):
+        log(f"[build] score.cu launch: {line}")
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     errs = phase_kernels_vs_plain(rng, dev)
+    errs = merge_errs(errs, phase_score_edges(edge_rng(args.seed, 9), dev))
     log(f"[phase] kernels vs plain: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_path = phase_main_path(rng)

@@ -7,15 +7,13 @@ interleaved.
 
 Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``.
 Its sources are built with the package's nvcc flags into ``build/ab/<i>/``
-of this checkout and bound in place of the package's own build.
-``score.cu`` must keep this checkout's C interface, and every side runs
-through this checkout's wrapper: scores on 16384 pairs of 512 x 512 under
-``chip_smoke``'s four parameter sets, SW and NW. The one-vs-many kernel
-(``search.cu``) and the pointer fills (``align.cu``, ``align_affine.cu``)
-run through each checkout's own wrapper (``ops/cuda_search.py`` or
-``ops/cuda_align.py`` of that checkout, loaded under a name of its own), so
-the sides may differ in their C interface and in the layout they launch
-on: the one-vs-many kernel at each search path's launch shape
+of this checkout and bound in place of the package's own build. Every
+source runs through each checkout's own wrapper (``ops/cuda_score.py``,
+``ops/cuda_search.py``, ``ops/cuda_align.py`` or ``ops/cuda_banded.py`` of
+that checkout, loaded under a name of its own), so the sides may differ in
+their C interface and in the layout they launch on: the score kernel
+(``score.cu``) on 16384 pairs of 512 x 512 under ``chip_smoke``'s four
+parameter sets, SW and NW; the one-vs-many kernel at each search path's launch shape
 (``chip_smoke.search_launches``), SW and NW (the profile launch's SW with
 coordinates); ``cuda_align.fill`` on 4096 pairs of 512 x 512 under the
 four parameter sets, SW and NW in both flavors, and at each aligning search
@@ -49,14 +47,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from versalignlib_tpu_torch.ops import _build, cuda_score  # noqa: E402
+from versalignlib_tpu_torch.ops import _build  # noqa: E402
 from versalignlib_tpu_torch.types import Algorithm, TieBreak  # noqa: E402
 
-#: The sources that run through this checkout's wrappers, and their kernels.
-KERNELS = {"score.cu": cuda_score.SCORE_KERNEL}
-#: The sources that run through each side's own wrapper: (wrapper module,
-#: the name of the source's kernel in it).
-OWN = {"search.cu": ("cuda_search", "SEARCH_KERNEL"),
+#: The sources, each with its wrapper module and the name of its kernel in
+#: it.
+SOURCES = {"score.cu": ("cuda_score", "SCORE_KERNEL"),
+       "search.cu": ("cuda_search", "SEARCH_KERNEL"),
        "align.cu": ("cuda_align", "ALIGN_KERNEL"),
        "align_affine.cu": ("cuda_align", "AFFINE_KERNEL"),
        "banded_score.cu": ("cuda_banded", "BANDED_SCORE_KERNEL"),
@@ -102,7 +99,7 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
             for alg in Algorithm:
                 out.append((f"score {pname} {alg.name}", "score.cu",
                             lambda i, r=r, f=f, p=params, a=alg:
-                            cuda_score.score_batch_device(r, f, p, a)))
+                            wrappers[i]["cuda_score"].score_batch_device(r, f, p, a)))
     fills = [(f"{pname} {cs.ALIGN_PAIRS}x{cs.LENGTH}x{cs.LENGTH}", params,
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH),
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH), tuple(TieBreak))
@@ -181,30 +178,27 @@ def main() -> int:
     ap.add_argument("checkouts", nargs="+", type=pathlib.Path)
     ap.add_argument("--pairs", type=int, default=10, help="rounds of every side")
     ap.add_argument("--out", type=pathlib.Path, help="write every round's times here (JSON)")
-    ap.add_argument("--kernels", nargs="+", default=[*KERNELS, *OWN],
-                    choices=[*KERNELS, *OWN], help="the sources to time")
+    ap.add_argument("--kernels", nargs="+", default=[*SOURCES], choices=[*SOURCES],
+                    help="the sources to time")
     args = ap.parse_args()
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
     checkouts = [c.resolve() for c in args.checkouts]
-    modules = {OWN[s][0] for s in args.kernels if s in OWN}
+    modules = {SOURCES[s][0] for s in args.kernels}
     if set(BANDED) & set(args.kernels):
         modules.add("cuda_align")   # last_valid_pos
     wrappers = [{mod: own_wrapper(i, c, mod) for mod in modules}
                 for i, c in enumerate(checkouts)]
 
     def kernel_of(i, source):
-        if source in OWN:
-            mod, kernel = OWN[source]
-            return getattr(wrappers[i][mod], kernel)
-        return KERNELS[source]
+        mod, kernel = SOURCES[source]
+        return getattr(wrappers[i][mod], kernel)
 
     jobs = [(i, c, s, kernel_of(i, s)) for i, c in enumerate(checkouts) for s in args.kernels]
     with ThreadPoolExecutor(len(jobs)) as ex:
         fns = dict(zip([(i, s) for i, _, s, _ in jobs], ex.map(lambda j: build(*j), jobs)))
     for (i, source), fn in fns.items():
-        if source in OWN:
-            kernel_of(i, source)._fn = fn
+        kernel_of(i, source)._fn = fn
     sides = range(len(checkouts))
     results = {}
     for name, source, call in cases(torch.device("cuda", 0), args.kernels, wrappers):
@@ -212,7 +206,6 @@ def main() -> int:
         want = None
         for rnd in range(args.pairs):
             for i in (sides if rnd % 2 == 0 else reversed(sides)):
-                kernel_of(i, source)._fn = fns[i, source]
                 got = call(i)
                 got = got if isinstance(got, tuple) else (got,)
                 if want is None:
@@ -221,8 +214,6 @@ def main() -> int:
                         not all(torch.equal(g, w) for g, w in zip(got, want)):
                     raise AssertionError(f"{name}: side {i} differs from side 0")
                 times[i].append(cs.time_cuda(lambda: call(i))["median"])
-        if source in KERNELS:
-            KERNELS[source]._fn = None
         wins = sum(b < a for a, b in zip(times[0], times[len(sides) - 1]))
         summary = []
         for i in sides:

@@ -12,154 +12,147 @@
 // - affine gaps: F = max(up + open_ref, F_up) + gap_ref flows down each
 //   column, E = max(left + open_read, E) + gap_read along each row, both
 //   starting at -inf (NEG_INF_I32 = -(2**30)), and SW folds its zero clamp
-//   into E (pallas_score.py:294-316).
+//   into E (pallas_score.py:294-316), which is max(H, E, 0) of the cell;
 // SW returns the local maximum seeded at 0. NW returns the overlap score: the
 // maximum over the last column of every row and over the whole final row,
-// clamped at 0; on this score path column 0 is 0 (pallas_score.py:284,
-// 349-368), unlike the traceback path's.
+// clamped at 0; on this score path row -1 and column -1 are 0
+// (pallas_score.py:284, 349-368), unlike the traceback path's.
 //
-// What bounds it on an H100: integer operations. The cell loop costs 10 /
-// 8 int32 operations per SW / NW cell with linear gaps and DNA scoring, 14
-// / 12 with affine gaps, two fewer with a matrix
-// (chip_smoke.ops_per_cell), and a cell moves no bytes of its own: the
-// inputs are m + n bytes per pair and the output 4 bytes. The design keeps
-// the DP out of device memory:
-// - one thread per pair; every dependency of the recurrence stays inside a
-//   pair, so threads never talk to each other;
-// - codes arrive pair-interleaved, (len, b) uint8, so a warp's 32 threads
-//   read 32 neighbouring bytes;
-// - kRows read rows advance together down each column with their left and
-//   diagonal values (and E) in registers, so the rolling H row (and F row),
-//   (n, b) int32 scratch in device memory that mostly stays in the 50 MB L2,
-//   is read and written once per kRows cells instead of once per cell;
-// - the next column's H (and F) value and ref code are loaded before the
-//   current column is computed, so a warp does not wait out an L2 round trip
-//   per column (with 16 rows and this prefetch, 2.4x faster than 8 rows
-//   without it at 16384 pairs; PERF.md);
-// - a matrix lives in shared memory, where a lookup is one load: each row's
-//   base (code * S) is computed once per sweep and each column's code once,
-//   so a cell pays one add and one shared load. A table too large for the
-//   48 KB of static shared memory is read from device memory through the
-//   read-only cache instead (kMat 2);
-// - blocks are one warp, so a batch of b pairs gives b / 32 blocks to spread
-//   over the 132 SMs (larger blocks measured no faster; PERF.md).
-// The sweep and the recurrence are common.cuh's val::score_pair; this
-// source keeps how a cell finds its substitution score (DnaSub,
-// MatrixSub).
+// What bounds it on an H100: integer operations. A cell costs 10 / 8 int32
+// operations SW / NW with linear gaps and DNA scoring, 14 / 12 with affine
+// gaps, two fewer with a matrix (chip_smoke.ops_per_cell), and moves no
+// bytes of its own: the inputs are m + n bytes a pair, the output 4 bytes.
+// So the card must stay busy and the DP must stay out of device memory. A
+// thread per pair gives 16384 pairs only 512 warps, one a scheduler, so the
+// latency of each instruction down a column's dependent chain shows, and
+// its rolling (n, B) H (and F) row must live in device memory. The design
+// is the one-vs-many kernel's (search.cu), on a pair's own read and ref:
+// - a group of 16 lanes per pair, 8 pairs a block of four warps: 16384
+//   pairs are 8192 warps;
+// - the step loop is stripe.cuh's group_best: lane l owns kCols consecutive
+//   ref columns (32 or 40, the wrapper's choice per launch,
+//   ops/cuda_search.search_cols; at 512 columns and 32 a lane, one stripe)
+//   and at step t computes read row t - l of them. H (and F) stay in the
+//   lane's registers; the left H (and E) come from lane l - 1 by one
+//   shuffle; cells go through DPX, a row in two in-place passes. Between
+//   stripes the pair's boundary column (m int32, 2m affine) lives in shared
+//   memory, or in device memory where a block's eight would not fit. No
+//   (n, B) row remains;
+// - codes are read pair-major, as the caller passes them, (B, m) and (B, n):
+//   each lane loads its ref codes once a stripe and the read code once a
+//   step, one step ahead, from the pair's read in device memory (through
+//   L1: a 512-byte read serves 512 steps of 16 lanes). Staged in shared
+//   memory by the block, the reads took 0.7% more to 3.3% less time across
+//   the eight branches (PERF.md): not worth 8m bytes of shared
+//   memory a block, which would cap the read length near 29 kbp;
+// - substitution: DNA scores that fit a signed byte through byte tables and
+//   one prmt a cell; other DNA scores as their 6 x 6 matrix and any S x S
+//   matrix one lookup a cell, in shared memory up to 227 KB (kSub 1, opted
+//   in past 48 KB), else through the read-only cache (kSub 2).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "stripe.cuh"
 
 namespace {
 
-using val::lookup;
+using val::kGroup;
+using val::kMaxSmemBytes;
+using val::kPairs;
+using val::kThreads;
 
 struct ScoreArgs {
-  const uint8_t *reads;  // (m, b) codes
-  const uint8_t *refs;   // (n, b) codes
-  int32_t *h;            // (n, b) rolling H row, columns 1..n
-  int32_t *f;            // (n, b) rolling Gotoh F row (affine only)
+  const uint8_t *reads;  // (b, m) codes
+  const uint8_t *refs;   // (b, n) codes
+  const int32_t *table;  // (s, s) matrix [read][ref]; null for the byte tables
+  const uint2 *bytes;    // (8,) DNA byte tables (kSub 0)
+  int32_t *edge;         // boundary columns in device memory, or null
   int32_t *out;          // (b,) best score per pair
-  const int32_t *table;  // (s, s) substitution matrix (matrix modes only)
   int b, m, n, s;
-  int match, mismatch, gap_read, gap_ref, open_read, open_ref;
+  int gap_read, gap_ref, open_read, open_ref;
 };
 
-// Default DNA scoring for val::score_sweep: codes 1..4 match or mismatch,
-// and 0 (padding) and 5 (N) score 0 on either side. `reads` and `refs`
-// point at the pair's first code, stride b.
-struct DnaSub {
-  const uint8_t *reads, *refs;
-  int b, match, mismatch;
-  struct Row {
-    int code, mask;
-  };
-  struct Col {
-    int code, base;
-  };
-  __device__ Row row(int i) const {
-    const int c = reads[(size_t)i * b];
-    const bool valid = c >= 1 && c <= 4;
-    // -2 never equals a ref sentinel (-1); the mask zeroes N / padding.
-    return {valid ? c : -2, valid ? -1 : 0};
+template <bool kLocal, bool kAffine, int kSub, int kCols>
+__global__ void __launch_bounds__(kThreads) score_kernel(ScoreArgs a) {
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ uint2 bytes[8];
+  constexpr int kEdge = kAffine ? 2 : 1;
+  constexpr int kStripe = kGroup * kCols;
+  const int m = a.m, n = a.n, s = a.s;
+  const int stripes = (n + kStripe - 1) / kStripe;
+  // Shared memory: the table (kSub 1), then the boundary columns.
+  const int tab_words = kSub == 1 ? s * s : 0;
+  const bool edge_shared = a.edge == nullptr && stripes > 1;
+  int32_t *edge_s = smem + tab_words;
+  const int32_t *tab = a.table;
+  if (kSub == 1) {
+    for (int t = threadIdx.x; t < tab_words; t += kThreads) smem[t] = tab[t];
+    tab = smem;
   }
-  __device__ int load(int j) const { return refs[(size_t)j * b]; }
-  __device__ Col col(int f) const {
-    const bool valid = f >= 1 && f <= 4;
-    return {valid ? f : -1, valid ? mismatch : 0};
-  }
-  __device__ int score(Row r, Col c) const {
-    return (r.code == c.code ? match : c.base) & r.mask;
-  }
-};
+  if (kSub == 0 && threadIdx.x < 8) bytes[threadIdx.x] = a.bytes[threadIdx.x];
+  __syncthreads();
 
-// S x S matrix scoring for val::score_sweep, table[read][ref], codes >= S
-// read as code 0: each row's base (code * S) is found once per sweep and
-// each column's code once, so a cell pays one add and one lookup.
-template <int kMat>
-struct MatrixSub {
-  const uint8_t *reads, *refs;
-  const int32_t *tab;
-  int b, s;
-  using Row = int;
-  using Col = int;
-  __device__ int row(int i) const {
-    const int c = reads[(size_t)i * b];
-    return (c < s ? c : 0) * s;
-  }
-  __device__ int load(int j) const { return refs[(size_t)j * b]; }
-  __device__ int col(int f) const { return f < s ? f : 0; }
-  __device__ int score(int r, int c) const { return lookup<kMat>(tab, r + c); }
-};
-
-template <bool kLocal, bool kAffine, int kMat>
-__global__ void __launch_bounds__(val::kThreads) score_kernel(ScoreArgs a) {
-  extern __shared__ int32_t smem[];
-  const int32_t *tab;
-  const uint8_t *unused;
-  val::matrix_prologue<kMat>(a.table, nullptr, a.s, smem, tab, unused);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.b) return;
-  const val::Gaps g{a.gap_read, a.gap_ref, a.open_read, a.open_ref};
-  const auto run = [&](const auto &sub) {
-    return val::score_pair<kLocal, kAffine>(sub, g, a.m, a.n, a.h + p,
-                                            kAffine ? a.f + p : nullptr, a.b);
-  };
-  if constexpr (kMat != 0) {
-    a.out[p] = run(MatrixSub<kMat>{a.reads + p, a.refs + p, tab, a.b, a.s});
-  } else {
-    a.out[p] = run(DnaSub{a.reads + p, a.refs + p, a.b, a.match, a.mismatch});
-  }
+  const int slot = threadIdx.x / kGroup, lane = threadIdx.x % kGroup;
+  const int p_raw = blockIdx.x * kPairs + slot;
+  const bool live = p_raw < a.b;
+  const int p = live ? p_raw : a.b - 1;  // a group past B computes, stores nothing
+  const uint8_t *rows = a.reads + (size_t)p * m;
+  const uint8_t *cols = a.refs + (size_t)p * n;
+  int32_t *edge = edge_shared ? edge_s + slot * m * kEdge
+                 : a.edge == nullptr ? nullptr
+                                     : a.edge + (size_t)p_raw * m * kEdge;
+  const val::Score<kSub> sc{bytes, reinterpret_cast<const char *>(tab), s, 0};
+  const val::Best best = val::group_best<kLocal, kAffine, false, kSub, kCols>(
+      sc, rows, cols, edge, m, n, lane, a.gap_read, a.gap_ref, a.open_read, a.open_ref);
+  if (lane == 0 && live) a.out[p] = best.v;
 }
 
 }  // namespace
 
-// Launch on `stream`; b >= 1, m >= 1, n >= 1. `f` is the (n, b) F scratch
-// when affine, else unused; `table` is the (s, s) matrix, or null for the
-// default DNA scoring. Returns cudaGetLastError().
-extern "C" int val_score_launch(const void *reads, const void *refs, void *h,
-                                void *f, void *out, const void *table, int b,
-                                int m, int n, int s, int match, int mismatch,
-                                int gap_read, int gap_ref, int open_read,
-                                int open_ref, int local, int affine,
-                                void *stream) {
-  ScoreArgs a{static_cast<const uint8_t *>(reads),
-              static_cast<const uint8_t *>(refs),
-              static_cast<int32_t *>(h),
-              static_cast<int32_t *>(f),
-              static_cast<int32_t *>(out),
-              static_cast<const int32_t *>(table),
-              b, m, n, s, match, mismatch, gap_read, gap_ref, open_read,
-              open_ref};
-  const size_t table_bytes = sizeof(int32_t) * s * s;
-  val::dispatch(local, affine, table, table_bytes,
-                [&](auto kLocal, auto kAffine, auto kMat) {
-    score_kernel<decltype(kLocal)::value, decltype(kAffine)::value,
-                 decltype(kMat)::value>
-        <<<val::grid_for(b), val::kThreads, kMat == 1 ? table_bytes : 0,
-           static_cast<cudaStream_t>(stream)>>>(a);
-  });
-  return static_cast<int>(cudaGetLastError());
+// Launch on `stream`; b, m, n, s >= 1. `reads` (b, m) and `refs` (b, n)
+// uint8 codes, pair-major. Scoring, one of: `bytes` (8, 2) int32, the DNA
+// byte tables of read codes 0..7 (table null, sub 0); `table` (s, s) int32
+// [read code][ref code] (bytes null), copied to shared memory (sub 1) or
+// read through the read-only cache (sub 2). `edge` is null or, where a
+// block's boundary columns do not fit shared memory, (ceil(b / 8) * 8, m,
+// affine ? 2 : 1) int32 scratch. `cols` (32 or 40) is the ref columns per
+// lane; `smem` the dynamic shared memory of a block: the table (sub 1),
+// then, where `edge` is null and n spans more than one stripe, 8 boundary
+// columns. ops/cuda_score.launch_plan chooses cols, sub and smem. `out`
+// (b,) int32. Returns the first CUDA error (0 on success).
+extern "C" int val_score_launch(const void *reads, const void *refs, const void *table,
+                                const void *bytes, void *edge, void *out, int b, int m,
+                                int n, int s, int gap_read, int gap_ref, int open_read,
+                                int open_ref, int local, int affine, int cols, int sub,
+                                int smem, void *stream) {
+  const ScoreArgs a{static_cast<const uint8_t *>(reads),
+                    static_cast<const uint8_t *>(refs),
+                    static_cast<const int32_t *>(table),
+                    static_cast<const uint2 *>(bytes),
+                    static_cast<int32_t *>(edge),
+                    static_cast<int32_t *>(out),
+                    b, m, n, s, gap_read, gap_ref, open_read, open_ref};
+  if ((sub == 0) != (bytes != nullptr) || (sub == 0) != (table == nullptr) || cols <= 0 ||
+      smem < 0 || static_cast<size_t>(smem) > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The layout must fit what the launch asks for.
+  const bool edge_shared = edge == nullptr && n > kGroup * cols;
+  const size_t need = (sub == 1 ? sizeof(int32_t) * static_cast<size_t>(s) * s : 0) +
+                      (edge_shared ? sizeof(int32_t) * kPairs * m * (affine ? 2 : 1) : 0);
+  if (need > static_cast<size_t>(smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(val::dispatch_group(
+      local, affine, false, sub, cols, [&](auto kL, auto kA, auto kC, auto kS, auto kCo) {
+        if constexpr (decltype(kC)::value) {
+          return cudaErrorInvalidValue;
+        } else {
+          const auto kernel = score_kernel<decltype(kL)::value, decltype(kA)::value,
+                                           decltype(kS)::value, decltype(kCo)::value>;
+          if (const cudaError_t err = val::allow_smem(kernel, smem); err != cudaSuccess)
+            return err;
+          kernel<<<(b + kPairs - 1) / kPairs, kThreads, smem, st>>>(a);
+          return cudaGetLastError();
+        }
+      }));
 }

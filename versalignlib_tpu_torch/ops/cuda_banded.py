@@ -13,14 +13,16 @@ launch is first held to the free device memory by
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
+from versalignlib_tpu_torch.alphabet import valid_code_mask
 from versalignlib_tpu_torch.ops import plain_banded
 from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK
-from versalignlib_tpu_torch.ops.cuda_score import check_codes, matrix_tables
+from versalignlib_tpu_torch.ops.cuda_score import check_codes
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, TieBreak
 from versalignlib_tpu_torch.utils.capabilities import check_banded_budget
@@ -35,6 +37,18 @@ BANDED_SCORE_KERNEL = CudaKernel(
 #: The banded pointer-fill kernel (B6), with its own launch count.
 BANDED_ALIGN_KERNEL = CudaKernel(
     "banded_align.cu", "val_banded_align_launch", [_P] * 10 + [_I] * 15 + [_P])
+
+
+@functools.lru_cache(maxsize=None)
+def matrix_tables(matrix: tuple, device: torch.device):
+    """The banded kernels' copy of an S x S ``matrix`` on ``device``: the
+    (S, S) int32 table and the (S,) uint8 SSE validity of each code
+    (``valid_code_mask``). Kept per (matrix, device), so a launch copies
+    nothing to the card."""
+    table = torch.tensor(matrix, dtype=torch.int32)
+    valid = torch.from_numpy(valid_code_mask(matrix).astype(np.uint8))
+    return table.to(device), valid.to(device)
+
 
 #: Pairs per block (one warp each) and the shared memory a block may take
 #: on an H100 (csrc/banded.cuh kWarps; 227 KB).
@@ -137,7 +151,7 @@ def _common_args(reads, refs, offsets, band, params, dev):
                               dtype=torch.int32, device=dev)
     table = valid = None
     if params.matrix is not None:
-        table, valid = matrix_tables(params.matrix, 0, dev)
+        table, valid = matrix_tables(params.matrix, dev)
     padded = torch.zeros(b * n + REF_PAD, dtype=torch.uint8, device=dev)
     padded[:b * n] = refs.reshape(-1)
     ptrs = (reads.contiguous(), padded, offs, scratch, table, valid)

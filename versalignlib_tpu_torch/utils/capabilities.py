@@ -27,13 +27,14 @@ class DeviceCapabilities:
 
     def dense_fits(self, m: int, n: int, mode: str = "align",
                    affine: bool = False) -> bool:
-        """Whether one warp of 32 pairs of m x n, the smallest batch a
-        kernel launch covers, fits the device memory under the kernels' own
-        plans (``mode`` "score" or "align"; ``affine`` for Gotoh gaps)."""
+        """Whether the smallest batch of pairs of m x n that a kernel launch
+        covers fits the device memory under the kernels' own plans: one block
+        of 8 pairs for the score kernel (``mode`` "score"), one warp of 32
+        for the fills ("align"); ``affine`` for Gotoh gaps."""
         if mode == "score":
             from versalignlib_tpu_torch.ops.cuda_score import score_mem_plan
 
-            return score_mem_plan(m, n, 32, affine) <= self.memory_bytes
+            return score_mem_plan(m, n, 8, affine) <= self.memory_bytes
         from versalignlib_tpu_torch.ops.cuda_align import align_mem_plan
 
         return align_mem_plan(m, n, 32, affine) <= self.memory_bytes
