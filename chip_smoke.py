@@ -22,7 +22,8 @@ Phases (any failure exits non-zero before a result is printed):
    (``score_geometry``: instantiation, registers, warps launched and
    resident per SM, shared memory, memory plan), and the one-vs-many
    kernel's at each search launch, with its memory plan, once the search
-   data is made (``search_geometry``);
+   data is made (``search_geometry``), and the walks' launches
+   (``walk_geometry``: a thread per pair, a warp a block);
 2. every branch of every kernel against its plain PyTorch version on the
    card, with ``==`` (tolerance 0: every output is an integer): at the main
    path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
@@ -46,17 +47,21 @@ Phases (any failure exits non-zero before a result is printed):
    set: ``AlignmentEngine(params, tie=...)`` scores 16384 pairs of 512 x 512
    and aligns 4096 of them (``raw=True``) and 256 (``raw=False``), SW and NW,
    both tie-break flavors, checked field by field on 64 random pairs against
-   the port's CPU path. The launch counts are set to 0 just before each
-   set's run and read just after: the kernels of its path must have
-   launched, and the other fill kernel must not;
+   the port's CPU path. The default engines walk on the card
+   (``csrc/walk.cu``); their raw output on the whole 4096-pair batch, every
+   column, == that of engines that walk on the host. The launch counts are
+   set to 0 just before each set's run and read just after: the score
+   kernel, the set's fill kernel and the walk must have launched, and the
+   other fill kernel and the banded and search kernels must not;
 4. times with CUDA events after a warm-up, the median of 7 runs with min and
    max, for each branch: the kernel, its plain version, the bound, the
    split of ``score_alignments`` into host-to-device copy, kernel,
    device-to-host copy and the rest, each timed inside the same calls
    (``score_wall_split``; logged, not in the ``kernels`` line), and the
-   split of
-   ``compute_alignments(raw=True)`` into device fill, device-to-host copy
-   and host decode;
+   split of ``compute_alignments(raw=True)``, every part timed inside the
+   same calls (``align_wall_split``): fill + walk + records copy + replay +
+   rest with the walk on the card, fill + pointer copy + host decode + rest
+   with it on the host;
 5. every branch of the one-vs-many kernel against its plain version with
    ``==``: at each search path's launch shape, on a slice of its queries at
    the full pool size; at odd shapes (m, n not multiples of 16) in both
@@ -80,7 +85,17 @@ Phases (any failure exits non-zero before a result is printed):
    and instances found where they were planted;
 7. times of the one-vs-many kernel at each path's launch shape (median of
    7, min, max, GCUPS), its plain version's at the slice shape, the bound;
-8. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
+8. every branch of the traceback walks (``csrc/walk.cu``, B7 linear, B8
+   Gotoh; ``csrc/banded_walk.cu``, B9, B10) against its plain version
+   (``ops/walk.py``) with ``==`` on the words the fill kernels write:
+   records, start cells and scores, at 4096 x 512 x 512 under every
+   parameter set, SW and NW, both flavors; at the edges (``WALK_EDGES``:
+   refs of 9, 17 and 509, reads of one row, refs far longer than their
+   reads, ties, all-padding reads, SW score 0, insertions for Gotoh F
+   chains; ``BANDED_WALK_EDGES``: bands 8 and 20, steps of 3-4;
+   ``WALK_RANDOM_WORDS``: random words whose walks leave the band on both
+   edges); on 32 of the 16 kbp pairs at band 512 (``phase_walk_vs_plain``);
+9. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
    ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
    first at the edges of their row layout (``BANDED_EDGES``: bands of 8 and
    20 where most lanes are empty, a band equal to n, steps of 3-4, 24, 32
@@ -96,22 +111,28 @@ Phases (any failure exits non-zero before a result is printed):
    read-only cache, at 64 pairs of 300 x 360, band 203; and the
    models' defaults (DNA linear SW and NW, BWA-MEM affine SW) on 32 of the
    long pairs at full length;
-9. the banded models at full width: ``banded_smith_waterman(band=512)``,
+10. the banded models at full width: ``banded_smith_waterman(band=512)``,
    ``banded_needleman_wunsch(band=512)`` and a banded BWA-MEM affine model,
    ``score`` and ``align`` on 1024 pairs of 16 kbp (each ref a window of the
    genome, each read a HiFi-like copy), launch counts read around each call
-   (B5 for ``score``, B6 for ``align``, no other kernel), 16 pairs checked
-   against the plain reference on the card, ``align`` split into fill
-   (CUDA events), pointer copy, host decode and the rest;
-10. ``map_long_reads`` of 256 HiFi-like reads of 12-15 kbp on both strands
+   (B5 for ``score``; B6 and the walk for ``align``; no other kernel), 16
+   pairs checked against the plain reference on the card, ``align`` again
+   with the walk on the host (== on every pair), each split into fill,
+   walk, copy back (CUDA events), replay or host decode and the rest;
+11. ``map_long_reads`` of 256 HiFi-like reads of 12-15 kbp on both strands
     and 16 junk reads against the 4.64 Mbp genome: the index timed alone, B6
-    the only kernel, every planted read within 50 bp of its origin on its
-    strand, junk unmapped, 16 reads checked against the plain reference, the
-    wall split into seeding and chaining, fill, decode and the rest;
-11. times of B5 and B6 at 1024 pairs of 16 kbp, band 512 (median of 7, min,
+    and B9 the only kernels, every planted read within 50 bp of its origin on its
+    strand, junk unmapped, 16 reads checked against the plain reference and
+    all against the walk on the host, the wall split into seeding and
+    chaining, fill, walk, copy, replay and the rest; then one round of 528
+    pairs of 100 kbp at band 512 with the walk on the card, split alike
+    (``phase_long_round``);
+12. times of B5 and B6 at 1024 pairs of 16 kbp, band 512 (median of 7, min,
     max, GCUPS in band cells), each launch's geometry, the plain versions'
-    on the 32-pair slice, the bounds;
-12. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+    on the 32-pair slice, the bounds; times of B7-B10 (4096 x 512 x 512;
+    1024 x 16 kbp, band 512), their plain versions, their bounds from the
+    rows this run's walks visited (``walk_bound``);
+13. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
     ``{"ok": true, "device": {...}}``.
 
 DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
@@ -734,10 +755,10 @@ def _same_alignment(x, y) -> bool:
 
 def _main_path(name, params, rng) -> dict:
     """One parameter set through the engine, launch counts read around it
-    alone, checked on 64 pairs against the CPU path."""
+    alone, checked on 64 pairs against the CPU path; the raw alignments of
+    the default engines, which walk on the card, == those of engines that
+    walk on the host, on the whole batch."""
     from versalignlib_tpu_torch import Algorithm, AlignmentEngine, TieBreak
-    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
-    from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
 
     engines = {tie: AlignmentEngine(params, backend="auto", tie=tie) for tie in TieBreak}
     for engine in engines.values():
@@ -752,7 +773,7 @@ def _main_path(name, params, rng) -> dict:
     pick = np.sort(rng.choice(ALIGN_PAIRS, size=CHECK_PAIRS, replace=False))
     pick_obj = np.sort(rng.choice(nobj, size=CHECK_PAIRS, replace=False))
 
-    kernels = {"score": SCORE_KERNEL, "align": ALIGN_KERNEL, "align_affine": AFFINE_KERNEL}
+    kernels = _all_kernels()
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -767,11 +788,21 @@ def _main_path(name, params, rng) -> dict:
     launches = {k: v.launches for k, v in kernels.items()}
     log(f"[main] {name}: launches during its path: {launches} ({wall:.2f} s)")
     fill, other = ("align_affine", "align") if params.affine else ("align", "align_affine")
-    for kernel in ("score", fill):
+    for kernel in ("score", fill, "walk"):
         if launches[kernel] < 1:
             raise AssertionError(f"{name}: the path never launched the {kernel} kernel")
-    if launches[other]:
-        raise AssertionError(f"{name}: the path launched the {other} kernel")
+    for kernel in (other, "search", "banded_score", "banded_align", "banded_walk"):
+        if launches[kernel]:
+            raise AssertionError(f"{name}: the path launched the {kernel} kernel")
+    for (alg, tie), batch in raws.items():
+        host = AlignmentEngine(params, tie=tie, device_walk=False).compute_alignments(
+            alg, align_r, align_f, raw=True)
+        for col in ("meta", "cigar", "read_gapped", "ref_gapped"):
+            if not np.array_equal(getattr(batch, col), getattr(host, col)):
+                raise AssertionError(f"{name} raw {col} {alg.name} {tie.name}: the walk on "
+                                     "the card differs from the walk on the host")
+    log(f"[main] {name}: raw B={ALIGN_PAIRS}, SW, NW x both flavors, walk on the card == "
+        "walk on the host, every column")
 
     for alg in Algorithm:
         cpus = {tie: AlignmentEngine(params, tie=tie, device="cpu") for tie in TieBreak}
@@ -805,9 +836,10 @@ def phase_main_path(rng) -> dict:
     return {name: _main_path(name, params, rng) for name, params in _param_sets().items()}
 
 
-def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
-    from versalignlib_tpu_torch import AlignmentEngine
-    from versalignlib_tpu_torch.native import decode_batch_native
+def phase_times(rng, dev, main: dict, errs: dict, splits: dict) -> list[dict]:
+    """Times of B1, B2 and B3 at the main path's shapes, and the split of
+    ``compute_alignments(raw=True)`` per parameter set (kept in
+    ``splits``)."""
     from versalignlib_tpu_torch.ops import cuda_align, plain
     from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
@@ -847,11 +879,9 @@ def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
         kernel, plain_fill = cuda_align.fill, _plain_fill(params)
         pack = cuda_align.AFFINE_PACK if params.affine else cuda_align.PACK
         nc = -(-n // pack)
-        engine = AlignmentEngine(params)
         mrp_sse = torch.from_numpy(cuda_align.last_valid_pos(
             r_np, TieBreak.DIAG_LEFT_UP, params.matrix)).to(dev)
         t = {}
-        split = {}
         sse = {}
         for alg, key in algs:
             sse[key] = time_cuda(
@@ -868,29 +898,6 @@ def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
                 f"{b * m * n / k['median'] / 1e6:.1f} GCUPS; plain {pl['median']:.1f} ms; "
                 f"bound {bd:.3f} ms ({by}); SSE flavor {sse[key]:.3f} ms")
 
-            out = kernel(r, f, mrp, params, alg, tie)
-            host = [None if x is None else torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                    for x in out]
-
-            def copy():
-                for h, x in zip(host, out):
-                    if x is not None:
-                        h.copy_(x, non_blocking=True)
-
-            d2h = time_cuda(copy)
-            start_r, start_f, sc = cuda_align.start_cells(
-                host[1].numpy(), None if host[2] is None else host[2].numpy(),
-                mrp_np, f_np, tie, key == "sw", params.matrix)
-            decode = time_host(lambda: decode_batch_native(
-                (host[0].numpy(), pack), r_np, f_np, start_r, start_f,
-                params, alg, sc, affine=params.affine, raw=True))
-            e2e = time_host(lambda: engine.compute_alignments(alg, r_np, f_np, raw=True))
-            split[key] = {"fill_ms": k["median"], "d2h_ms": d2h["median"],
-                          "d2h_GBps": 4 * b * m * nc / d2h["median"] / 1e6,
-                          "decode_ms": decode["median"], "e2e_ms": e2e["median"],
-                          "e2e_min_ms": e2e["min"], "e2e_max_ms": e2e["max"]}
-            log(f"[times] compute_alignments(raw=True) {name} {key} B={b} {m}x{n}: "
-                + json.dumps({kk: round(v, 3) for kk, v in split[key].items()}))
         key = _kernel_name("align", params)
         fill_kernel = "align_affine" if params.affine else "align"
         source, replaces = (
@@ -899,6 +906,7 @@ def phase_times(rng, dev, main: dict, errs: dict) -> list[dict]:
             ("versalignlib_tpu_torch/csrc/align.cu", "versalignlib_tpu/ops/pallas_align.py:90"))
         entries.append(_entry(key, name, source, replaces,
                               main[name]["launches"][fill_kernel], errs[key], (b, m, n), t))
+        split = splits[name] = align_wall_split(name, params, r_np, f_np)
         entries[-1]["compute_alignments_split"] = split
         entries[-1]["sse_flavor_ms"] = sse
     return entries
@@ -1480,27 +1488,30 @@ def _host_timed(module, name: str, acc: list):
 @contextlib.contextmanager
 def _plain_search():
     """The reference runs, plain throughout on the card: the one-vs-many
-    kernel's wrappers and the fill launch swapped for their plain versions.
-    Raises if a kernel launched all the same."""
+    kernel's wrappers, the fill launch and the walk swapped for their plain
+    versions. Raises if a kernel launched all the same."""
     from versalignlib_tpu_torch.ops import cuda_align, cuda_search, plain
     from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
     from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
 
+    from versalignlib_tpu_torch.ops import cuda_walk
+
     def plain_fill(reads, refs, mrp, params, algorithm, tie):
         return _plain_fill(params)(reads, refs, mrp, params, algorithm, tie)
 
-    kernels = (SEARCH_KERNEL, ALIGN_KERNEL, AFFINE_KERNEL)
+    kernels = (SEARCH_KERNEL, ALIGN_KERNEL, AFFINE_KERNEL, cuda_walk.WALK_KERNEL)
     before = [k.launches for k in kernels]
     saved = (cuda_search.cross_scores_device, cuda_search.pssm_scores_device,
-             cuda_align._launch_fill)
+             cuda_align._launch_fill, cuda_walk.walk)
     cuda_search.cross_scores_device = plain.cross_scores
     cuda_search.pssm_scores_device = plain.profile_scores
     cuda_align._launch_fill = plain_fill
+    cuda_walk.walk = _plain_walks()[0]
     try:
         yield
     finally:
         (cuda_search.cross_scores_device, cuda_search.pssm_scores_device,
-         cuda_align._launch_fill) = saved
+         cuda_align._launch_fill, cuda_walk.walk) = saved
     if [k.launches for k in kernels] != before:
         raise AssertionError("a kernel launched during a plain reference run")
 
@@ -1508,7 +1519,9 @@ def _plain_search():
 def _run_path(name: str, fn, fill: str | None):
     """Run ``fn`` once with every launch count set to 0 just before and read
     just after; the one-vs-many kernel must have launched, and ``fill`` (the
-    fill kernel of the path's parameters) too, the other fill kernel not.
+    fill kernel of the path's parameters) too, the other fill kernel not
+    (the walk kernel's launches are logged: paths that align through the
+    backend walk on the card, ``translated_search`` on the host).
     Returns (result, {"launches", "split"}), the split in ms: wall, the
     one-vs-many kernel (CUDA events), the align path (host clock; its fill
     kernels by CUDA events) and the rest."""
@@ -1517,8 +1530,10 @@ def _run_path(name: str, fn, fill: str | None):
     from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
     from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
 
+    from versalignlib_tpu_torch.ops.cuda_walk import WALK_KERNEL
+
     kernels = {"search": SEARCH_KERNEL, "score": SCORE_KERNEL, "align": ALIGN_KERNEL,
-               "align_affine": AFFINE_KERNEL}
+               "align_affine": AFFINE_KERNEL, "walk": WALK_KERNEL}
     align_ms: list[float] = []
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -1735,6 +1750,11 @@ BANDED_SLICE, BANDED_CHECK = 32, 16
 LONG_READS, LONG_MIN, LONG_MAX, LONG_JUNK, JUNK_LEN, LONG_SLACK = 256, 12000, 15000, 16, 12000, 50
 #: HiFi-like errors: substitutions and indels (of 1-3 bp) per base.
 HIFI_SUB, HIFI_INDEL = 0.005, 0.003
+#: One round of the banded path with the walk on the card: a wave of
+#: LONG_ROUND_PAIRS pairs of LONG_ROUND_LEN bp at band BAND (13.5 GB of
+#: pointer words that never leave the card), LONG_ROUND_CHECK of them
+#: checked against the host walk.
+LONG_ROUND_PAIRS, LONG_ROUND_LEN, LONG_ROUND_CHECK = 528, 100_000, 4
 
 #: Wide bands and a large matrix, held to the plain versions: (label,
 #: pairs, m, n, band, gap, algorithms). Bands this wide keep their rows in
@@ -1771,10 +1791,12 @@ def _all_kernels():
     from versalignlib_tpu_torch.ops.cuda_banded import BANDED_ALIGN_KERNEL, BANDED_SCORE_KERNEL
     from versalignlib_tpu_torch.ops.cuda_score import SCORE_KERNEL
     from versalignlib_tpu_torch.ops.cuda_search import SEARCH_KERNEL
+    from versalignlib_tpu_torch.ops.cuda_walk import BANDED_WALK_KERNEL, WALK_KERNEL
 
     return {"score": SCORE_KERNEL, "align": ALIGN_KERNEL, "align_affine": AFFINE_KERNEL,
             "search": SEARCH_KERNEL, "banded_score": BANDED_SCORE_KERNEL,
-            "banded_align": BANDED_ALIGN_KERNEL}
+            "banded_align": BANDED_ALIGN_KERNEL, "walk": WALK_KERNEL,
+            "banded_walk": BANDED_WALK_KERNEL}
 
 
 def hifi_copy(rng, seq: np.ndarray, length: int | None = None) -> np.ndarray:
@@ -2074,56 +2096,62 @@ def phase_banded_kernels_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
 @contextlib.contextmanager
 def _plain_banded():
     """The reference runs, plain throughout on the card: the banded
-    wrappers swapped for their plain versions and every kernel's launch made
-    to raise."""
-    from versalignlib_tpu_torch.ops import cuda_banded, plain_banded
+    wrappers and the banded walk swapped for their plain versions and every
+    kernel's launch made to raise."""
+    from versalignlib_tpu_torch.ops import cuda_banded, cuda_walk, plain_banded
 
     def refuse(*args):
         raise AssertionError("a kernel launched during a plain reference run")
 
     kernels = list(_all_kernels().values())
-    saved = (cuda_banded.score, cuda_banded.fill)
+    saved = (cuda_banded.score, cuda_banded.fill, cuda_walk.banded_walk)
     cuda_banded.score = plain_banded.banded_score
     cuda_banded.fill = plain_banded.banded_fill
+    cuda_walk.banded_walk = _plain_walks()[1]
     for k in kernels:
         k.launch = refuse
     try:
         yield
     finally:
-        cuda_banded.score, cuda_banded.fill = saved
+        cuda_banded.score, cuda_banded.fill, cuda_walk.banded_walk = saved
         for k in kernels:
             del k.launch
 
 
-def _run_banded(name: str, fn, want: str):
+def _run_banded(name: str, fn, want: tuple):
     """Run ``fn`` once with every launch count set to 0 just before and read
-    just after; ``want`` must have launched and no other kernel. Returns
-    (result, {"launches", "split"}), the split in ms: wall, the fill kernel
-    (CUDA events), the host decode (host clock)."""
-    from versalignlib_tpu_torch.ops import banded
-
+    just after; every kernel of ``want`` must have launched and no other.
+    Returns (result, {"launches": {kernel: count}, "split"}), the split in
+    ms of an align call as ``_split_timers`` takes it (fill, walk, copy
+    back, replay or host decode) with its wall and the rest; of a score
+    call, its wall."""
     kernels = _all_kernels()
-    decode_ms: list[float] = []
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
-    with _LaunchTimer(kernels["banded_align"]) as fill, \
-            _host_timed(banded, "decode_banded_native", decode_ms):
+    with (_split_timers(kernels["banded_align"]) if "banded_align" in want
+          else contextlib.nullcontext({})) as parts:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     launches = {k: v.launches for k, v in kernels.items()}
-    if launches[want] < 1 or any(v for k, v in launches.items() if k != want):
+    if any(launches[k] < 1 for k in want) or any(v for k, v in launches.items()
+                                                 if k not in want):
         raise AssertionError(f"{name}: launches {launches}; only {want} may launch")
-    split = {"wall_ms": wall, "fill_ms": fill.ms(), "decode_ms": sum(decode_ms)}
-    return result, {"launches": launches[want], "split": split}
+    split = dict(parts, wall_ms=wall)
+    split["rest_ms"] = wall - sum(v for k, v in parts.items())
+    return result, {"launches": {k: launches[k] for k in want}, "split": split}
 
 
 def phase_banded_models(rng, dev, pairs) -> dict:
     """The banded models at full width on BANDED_PAIRS pairs: score (B5) and
-    align (B6) each run once with the launch counts read around it, checked
-    on BANDED_CHECK pairs against the plain reference on the card."""
+    align (B6 and the walk, B9 or B10) each run once with the launch counts
+    read around it, align again with the walk on the host (== on every
+    pair), checked on BANDED_CHECK pairs against the plain reference on the
+    card."""
+    import dataclasses
+
     from versalignlib_tpu_torch import models
     from versalignlib_tpu_torch.ops import cuda_banded
     from versalignlib_tpu_torch.types import Algorithm
@@ -2148,9 +2176,15 @@ def phase_banded_models(rng, dev, pairs) -> dict:
     out = {"rounds": rounds, "pin_ms": pin_ms}
     for name, (pname, model) in runs.items():
         scores, s_run = _run_banded(f"{name}.score", lambda: model.score(reads, refs),
-                                    "banded_score")
+                                    ("banded_score",))
         alns, a_run = _run_banded(f"{name}.align", lambda: model.align(reads, refs),
-                                  "banded_align")
+                                  ("banded_align", "banded_walk"))
+        host_model = dataclasses.replace(model, device_walk=False)
+        host_alns, h_run = _run_banded(f"{name}.align, walk on the host",
+                                       lambda: host_model.align(reads, refs), ("banded_align",))
+        if not all(map(_same_alignment, alns, host_alns)):
+            raise AssertionError(f"{name}: the walk on the card differs from the walk on the "
+                                 "host")
         if scores.shape != (BANDED_PAIRS,) or (scores <= 0).any() or len(alns) != BANDED_PAIRS:
             raise AssertionError(f"{name}: bad scores or alignment count")
         # SW: the best score is the alignment's. NW need not agree: its
@@ -2167,23 +2201,22 @@ def phase_banded_models(rng, dev, pairs) -> dict:
         if not (scores[pick] == want_s).all():
             raise AssertionError(f"{name}: scores differ from the plain reference")
         _check_alignments(name, [alns[i] for i in pick], want_a)
-        # The pointer words' trip to the host alone, at the bytes of a round.
-        words = torch.empty((rounds, BANDED_LEN, -(-BAND // 8)), dtype=torch.int32, device=dev)
-        host = cuda_banded.PINNED.take(0, tuple(words.shape))
-        copy_ms = time_cuda(lambda: host.copy_(words, non_blocking=True), reps=3)["median"]
-        del words
-        # The rounds overlap (round 2 fills and copies while round 1
-        # decodes), so the rest is negative where they do.
-        d2h = copy_ms * BANDED_PAIRS / rounds
-        split = dict(a_run["split"], d2h_ms=d2h)
-        split["rest_ms"] = split["wall_ms"] - split["fill_ms"] - split["decode_ms"] - d2h
-        out[name] = {"params": pname, "score_launches": s_run["launches"],
-                     "align_launches": a_run["launches"], "score_wall_ms": s_run["split"]["wall_ms"],
-                     "align_split": split}
-        log(f"[banded] {name}: score B5 x{s_run['launches']} "
-            f"({s_run['split']['wall_ms']:.1f} ms), align B6 x{a_run['launches']} "
+        # The host walk's rounds overlap (round 2 fills and copies while
+        # round 1 decodes), so its rest is negative where they do.
+        split = a_run["split"]
+        out[name] = {"params": pname, "score_launches": s_run["launches"]["banded_score"],
+                     "align_launches": a_run["launches"]["banded_align"],
+                     "walk_launches": a_run["launches"]["banded_walk"],
+                     "score_wall_ms": s_run["split"]["wall_ms"], "align_split": split,
+                     "align_split_walk_off": h_run["split"]}
+        log(f"[banded] {name}: score B5 x{s_run['launches']['banded_score']} "
+            f"({s_run['split']['wall_ms']:.1f} ms), align B6 x{a_run['launches']['banded_align']}"
+            f" B9/B10 x{a_run['launches']['banded_walk']} "
             + json.dumps({k: round(v, 3) for k, v in split.items()})
-            + f"; {BANDED_CHECK} pairs == plain reference")
+            + "; walk on the host: " + json.dumps({k: round(v, 3) for k, v in
+                                                 h_run["split"].items() if v})
+            + f"; all {BANDED_PAIRS} == walk on the host; {BANDED_CHECK} pairs == plain "
+            "reference")
     return out
 
 
@@ -2193,20 +2226,52 @@ def phase_long_reads(rng, genome: np.ndarray) -> dict:
     read within LONG_SLACK of its origin on its strand, every junk read
     unmapped, 16 reads checked field by field against the plain reference."""
     import dataclasses
+    import functools
 
     from versalignlib_tpu_torch import build_index, longread, map_long_reads
+    from versalignlib_tpu_torch.ops import banded
 
     reads, origin, rev = make_long_reads(rng, genome)
     t0 = time.perf_counter()
     index = build_index(genome, k=15, w=10)
     index_ms = 1e3 * (time.perf_counter() - t0)
     chain_ms: list[float] = []
-    with _host_timed(longread, "find_chains", chain_ms):
-        hits, run = _run_banded("map_long_reads", lambda: map_long_reads(reads, (index, [genome])),
-                                "banded_align")
+    chains: list = []
+    find_chains = longread.find_chains
+
+    def recorded(*args, **kw):
+        chains.append(find_chains(*args, **kw))
+        return chains[-1]
+
+    longread.find_chains = recorded
+    try:
+        with _host_timed(longread, "find_chains", chain_ms):
+            hits, run = _run_banded("map_long_reads",
+                                    lambda: map_long_reads(reads, (index, [genome])),
+                                    ("banded_align", "banded_walk"))
+    finally:
+        longread.find_chains = find_chains
     split = dict(run["split"], index_ms=index_ms, seed_chain_ms=sum(chain_ms))
-    split["rest_ms"] = (split["wall_ms"] - split["seed_chain_ms"] - split["fill_ms"]
-                        - split["decode_ms"])
+    split["rest_ms"] -= split["seed_chain_ms"]
+    # The same mapping with the walk on the host; the host chains, which
+    # the walk does not change, are replayed as the first run found them.
+    replay = iter(chains)
+    align_batch = banded.banded_align_batch
+    longread.find_chains = lambda *args, **kw: next(replay)
+    banded.banded_align_batch = functools.partial(align_batch, device_walk=False)
+    try:
+        host = map_long_reads(reads, (index, [genome]))
+    finally:
+        longread.find_chains, banded.banded_align_batch = find_chains, align_batch
+    for field in ("ref_id", "pos", "strand", "score", "mapq", "chain_score"):
+        if not np.array_equal(getattr(hits, field), getattr(host, field)):
+            raise AssertionError(f"map_long_reads: {field} differs between the walk on the "
+                                 "card and on the host")
+    if not all((g is None and w is None) or (g is not None and w is not None
+                                             and _same_alignment(g, w))
+               for g, w in zip(hits.alignments, host.alignments)):
+        raise AssertionError("map_long_reads: alignments differ between the walk on the card "
+                             "and on the host")
     planted = origin >= 0
     off = np.abs(hits.pos - origin)
     bad = planted & ((hits.ref_id != 0) | (off > LONG_SLACK) | (hits.strand != rev))
@@ -2226,12 +2291,14 @@ def phase_long_reads(rng, genome: np.ndarray) -> dict:
                                           != dataclasses.asdict(w)):
             raise AssertionError("map_long_reads: alignments differ from the plain reference")
     log(f"[longread] {LONG_READS} reads of {LONG_MIN}-{LONG_MAX} bp + {LONG_JUNK} junk vs "
-        f"{genome.shape[0]} bp: B6 x{run['launches']}; every planted read within "
+        f"{genome.shape[0]} bp: B6 x{run['launches']['banded_align']}, B9 "
+        f"x{run['launches']['banded_walk']}; every planted read within "
         f"{LONG_SLACK} bp (max {int(off[planted].max())}) on its strand, junk unmapped; "
-        f"{len(pick)} == plain reference; "
+        f"{len(pick)} == plain reference; all == the walk on the host; "
         + json.dumps({k: round(v, 3) for k, v in split.items()}))
-    return {"launches": run["launches"], "split": split, "index_entries": len(index),
-            "max_offset_bp": int(off[planted].max())}
+    return {"launches": run["launches"]["banded_align"],
+            "walk_launches": run["launches"]["banded_walk"], "split": split,
+            "index_entries": len(index), "max_offset_bp": int(off[planted].max())}
 
 
 def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
@@ -2311,6 +2378,516 @@ def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The traceback walks: csrc/walk.cu (B7, B8) and csrc/banded_walk.cu (B9, B10)
+# ---------------------------------------------------------------------------
+
+#: The walks' edges, (label, pairs, m, n, reads): refs of 9, 17 and 509
+#: columns (partial pointer words), reads of one row, refs much longer than
+#: their reads (NW LEFT runs across many words), the periodic batch of
+#: ``tie_batch`` (its last reads all N or padding), reads that score 0 under
+#: SW (start (0, 0)), and reads with insertions of 4-24 bases (UP runs: the
+#: Gotoh walk's F chains).
+WALK_EDGES = (
+    ("n 9", 256, 64, 9, "random"), ("n 17", 256, 40, 17, "random"),
+    ("n 509", 128, 150, 509, "random"), ("m 1", 256, 1, 100, "random"),
+    ("n >> m, long LEFT runs", 64, 20, 1500, "random"), ("ties", 256, 96, 1100, "ties"),
+    ("SW score 0", 64, 30, 40, "zero"), ("insertions, F chains", 128, 200, 240, "insert"),
+)
+#: Banded walk edges, (label, pairs, m, n, band): bands of 8 and 20 on a
+#: fill's words; random words (LEFT 60% of the time, random Gotoh extend
+#: bits) whose walks leave the band on both edges.
+BANDED_WALK_EDGES = (("band 8", 32, 96, 120, 8), ("band 20", 32, 96, 120, 20),
+                     ("band 8, steps of 3-4", 16, 48, 184, 8))
+WALK_RANDOM_WORDS = ((256, 200, 260, 8), (256, 200, 260, 20))
+
+
+def _walk_reads(rng, params, b, m, n, kind):
+    """(reads, refs) of one ``WALK_EDGES`` case; every kind holds reads of
+    padding alone (mrp < 0) in its last four rows."""
+    if kind == "ties":
+        return tie_batch(rng, b, m, n)
+    reads, refs = codes_for(params, rng, b, m), codes_for(params, rng, b, n)
+    if kind == "zero":
+        reads[:] = 1
+        refs[:] = 2 if params.matrix is None else 3
+    elif kind == "insert":
+        for k in range(b - 4):
+            cut, size = int(rng.integers(20, m - 40)), int(rng.integers(4, 25))
+            src = np.concatenate([refs[k, :cut], codes_for(params, rng, 1, size)[0],
+                                  refs[k, cut:]])
+            reads[k] = np.where(src[:m] == 0, np.uint8(1), src[:m])
+    reads[-4:] = 0
+    return reads, refs
+
+
+def _plain_walks():
+    from versalignlib_tpu_torch.ops import walk as walks
+
+    def dense(ptr, aux, hsel, mrp, mxp, n, local, affine):
+        return (walks.walk_dense_affine if affine else walks.walk_dense)(
+            ptr, aux, hsel, mrp, mxp, n, local)
+
+    def banded(ptr, best, keep, mrp, mxp, offsets, n, band, local, affine):
+        offs = torch.as_tensor(np.asarray(offsets, np.int32)).to(ptr.device)
+        return (walks.walk_banded_affine if affine else walks.walk_banded)(
+            ptr, best, keep, mrp, mxp, offs, n, band, local)
+
+    return dense, banded
+
+
+def _visited_rows(records: torch.Tensor, start_r: torch.Tensor) -> tuple[int, int]:
+    """Rows the walks visited (every nonzero record, and the row where a
+    walk stopped with a START record of no LEFT), in all and at most in one
+    pair: the bytes of the bound and the chain of dependent loads."""
+    rows = (records != 0).sum(dim=1) + (start_r >= 0).to(torch.int64)
+    return int(rows.sum().item()), int(rows.max().item()) if rows.numel() else 0
+
+
+def _compare_walk(label, got, want) -> int:
+    err = 0
+    for part, g, w in zip(("records", "start_r", "start_f", "scores"), got, want):
+        err = max(err, check_equal(f"{label} {part}", g, w))
+    return err
+
+
+def check_dense_walk(label, r_np, f_np, params, dev, algs=None, ties=None) -> int:
+    """B7 or B8 (by the parameters' gap model) against its plain version on
+    the card, on the words the fill kernel writes for (B, m), (B, n) codes,
+    SW and NW under both tie flavors: records, start cells and scores with
+    ``==``. Returns the max abs error (0)."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_walk
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    plain_dense, _ = _plain_walks()
+    r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+    f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+    n = f_np.shape[1]
+    err = 0
+    for tie in ties or TieBreak:
+        mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+        mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
+        for alg in algs or Algorithm:
+            local = alg == Algorithm.SMITH_WATERMAN
+            out = cuda_align.fill(r, f, mrp, params, alg, tie)
+            args = (*out, mrp, mxp, n, local, params.affine)
+            err = max(err, _compare_walk(f"{label} {alg.name} {tie.name}",
+                                         cuda_walk.walk(*args), plain_dense(*args)))
+    return err
+
+
+def check_banded_walk(label, r_np, f_np, params, band, dev, algs=None, ties=None,
+                      timed=None) -> int:
+    """B9 or B10 against its plain version on the card, on the words the
+    banded fill kernel writes; ``timed`` collects one CUDA-event time of
+    each plain call, by algorithm. Returns the max abs error (0)."""
+    from versalignlib_tpu_torch.ops import cuda_banded, cuda_walk
+    from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    _, plain_banded_walk = _plain_walks()
+    r, f, offs = _banded_inputs(r_np, f_np, band, None, dev)
+    n = f_np.shape[1]
+    err = 0
+    for tie in ties or TieBreak:
+        mrp = torch.from_numpy(last_valid_pos(r_np, tie, params.matrix)).to(dev)
+        mxp = torch.from_numpy(last_valid_pos(f_np, tie, params.matrix)).to(dev)
+        for alg in algs or Algorithm:
+            local = alg == Algorithm.SMITH_WATERMAN
+            out = cuda_banded.fill(r, f, offs, mrp, params, alg, tie, band)
+            args = (*out, mrp, mxp, offs, n, band, local, params.affine)
+            got = cuda_walk.banded_walk(*args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain_banded_walk(*args)
+            end.record()
+            end.synchronize()
+            if timed is not None:
+                timed["sw" if local else "nw"] = start.elapsed_time(end)
+            err = max(err, _compare_walk(f"{label} {alg.name} {tie.name}", got, want))
+    return err
+
+
+def _random_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
+    """Band-relative words of random codes, LEFT 60% of the time, fields
+    past the band 0 (tests/test_torch_walk.py makes them alike)."""
+    codes = np.where(rng.random((b, m, nw * 8)) < 0.6, 2, rng.integers(0, 4, (b, m, nw * 8)))
+    if affine:
+        codes = codes | (rng.integers(0, 4, codes.shape) << 2)
+    codes[:, :, band:] = 0
+    words = (codes.reshape(b, m, nw, 8) << ((4 if affine else 2) * np.arange(8))).sum(axis=3)
+    return words.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+def check_random_band_words(rng, dev, b, m, n, band) -> dict:
+    """B9 and B10 against their plain versions on random words and random
+    start cells; raises unless walks leave the band on both edges."""
+    from versalignlib_tpu_torch.ops import cuda_walk
+    from versalignlib_tpu_torch.ops.banded import band_offsets
+
+    _, plain_banded_walk = _plain_walks()
+    offsets = band_offsets(m, m, n, band)
+    nw = -(-band // 8)
+    err = {}
+    for affine in (False, True):
+        ptr = torch.from_numpy(_random_band_words(rng, b, m, nw, band, affine)).to(dev)
+        rows = rng.integers(0, m, b)
+        best = torch.from_numpy(np.stack(
+            [rng.integers(0, 50, b), rows, offsets[rows] + rng.integers(0, band, b),
+             np.zeros(b, np.int64)], axis=1).astype(np.int32)).to(dev)
+        keep = torch.from_numpy(rng.integers(-20, 20, (b, band)).astype(np.int32)).to(dev)
+        mrp = torch.from_numpy(np.where(rng.random(b) < 0.1, -1, rows).astype(np.int32)).to(dev)
+        mxp = torch.from_numpy(rng.integers(-1, n, b).astype(np.int32)).to(dev)
+        key = f"banded_walk[{'affine' if affine else 'linear'}]"
+        right = left = 0
+        for local in (True, False):
+            args = (ptr, best, keep, mrp, mxp, offsets, n, band, local, affine)
+            got = cuda_walk.banded_walk(*args)
+            err[key] = max(err.get(key, 0), _compare_walk(
+                f"{key} random words band {band} local {local}", got, plain_banded_walk(*args)))
+            rec, sr, sf = (x.cpu().numpy() for x in got[:3])
+            for k in range(b):
+                r, fp = int(sr[k]), int(sf[k])
+                while r >= 0:
+                    run, code = int(rec[k, r]) >> 2, int(rec[k, r]) & 3
+                    off = int(offsets[r])
+                    if code == 0:
+                        right += fp - off >= band
+                        left += off > 0 and (fp < off or fp - run == off - 1)
+                        break
+                    fp -= run + (code == 3)
+                    r -= 1
+        if not (right and left):
+            raise AssertionError(f"{key} band {band}: walks off the right edge {right}, "
+                                 f"off the left edge {left}; both must occur")
+        log(f"[walk] banded_walk.cu == plain  {key} random words B={b} {m}x{n} band {band}, "
+            f"SW, NW: {right} walks off the band's right edge, {left} off its left edge")
+    return err
+
+
+def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
+    """Every branch of B7-B10 against its plain version on the card: at the
+    main path's shape (ALIGN_PAIRS x LENGTH x LENGTH, every parameter set,
+    SW and NW, both flavors), at the edges (``WALK_EDGES``,
+    ``BANDED_WALK_EDGES``, ``WALK_RANDOM_WORDS``) and on BANDED_SLICE of
+    the long pairs at band BAND (the banded models' branches: DNA linear SW
+    and NW, BWA-MEM affine SW).
+    Returns the max abs error per kernel name (0) and the plain banded
+    walks' times on the slice."""
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    sets = _param_sets()
+    err: dict[str, int] = {}
+
+    def merge(key, e):
+        err[key] = max(err.get(key, 0), e)
+
+    def key_of(kind, params):
+        return f"{kind}[{'affine' if params.affine else 'linear'}]"
+
+    t0 = time.perf_counter()
+    for name, params in sets.items():
+        r_np = codes_for(params, rng, ALIGN_PAIRS, LENGTH)
+        f_np = codes_for(params, rng, ALIGN_PAIRS, LENGTH)
+        merge(key_of("walk", params), check_dense_walk(
+            f"{name} {ALIGN_PAIRS}x{LENGTH}x{LENGTH}", r_np, f_np, params, dev))
+        log(f"[walk] walk.cu == plain  {name:24s} SW, NW x both flavors B={ALIGN_PAIRS} "
+            f"{LENGTH}x{LENGTH} (records, start cells, scores)")
+    for label, b, m, n, kind in WALK_EDGES:
+        for name in ("dna_default", "dna_affine_bwamem"):
+            params = sets[name]
+            r_np, f_np = _walk_reads(rng, params, b, m, n, kind)
+            merge(key_of("walk", params), check_dense_walk(f"{name} {label}", r_np, f_np,
+                                                           params, dev))
+        log(f"[walk] walk.cu == plain  linear, affine SW, NW x both flavors B={b} {m}x{n}: "
+            f"{label}")
+    for label, b, m, n, band in BANDED_WALK_EDGES:
+        for name in ("dna_default", "dna_affine_bwamem"):
+            params = sets[name]
+            r_np, f_np = _edge_reads(rng, params, b, m, n, band, "edge")
+            r_np[-2:] = 0
+            merge(key_of("banded_walk", params), check_banded_walk(
+                f"{name} {label}", r_np, f_np, params, band, dev))
+        log(f"[walk] banded_walk.cu == plain  linear, affine SW, NW x both flavors B={b} "
+            f"{m}x{n}: {label}")
+    for b, m, n, band in WALK_RANDOM_WORDS:
+        for key, e in check_random_band_words(rng, dev, b, m, n, band).items():
+            merge(key, e)
+    log(f"[walk] main shapes and edges: {time.perf_counter() - t0:.1f} s")
+    reads, refs = pairs[0][:BANDED_SLICE], pairs[1][:BANDED_SLICE]
+    plain_ms = {}
+    # The models' defaults: DNA linear SW and NW, BWA-MEM affine SW.
+    for name, algs in (("dna_default", list(Algorithm)),
+                       ("dna_affine_bwamem", [Algorithm.SMITH_WATERMAN])):
+        params = sets[name]
+        timed = {}
+        t0 = time.perf_counter()
+        merge(key_of("banded_walk", params), check_banded_walk(
+            f"{name} slice", reads, refs, params, BAND, dev, algs, (TieBreak.DIAG_UP_LEFT,),
+            timed))
+        plain_ms[name] = timed
+        log(f"[walk] banded_walk.cu == plain  {name:24s} {'SW, NW' if len(algs) == 2 else 'SW'} "
+            f"B={BANDED_SLICE} "
+            f"{BANDED_LEN}x{BANDED_LEN} band {BAND}; plain ms "
+            f"{json.dumps({k: round(v, 1) for k, v in timed.items()})} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    return err, plain_ms
+
+
+def walk_geometry(lines: list[str], pairs: int, sms: int) -> list[str]:
+    """A walk launch of ``pairs`` pairs (a thread each, a warp a block):
+    blocks, warps per SM, and each instantiation's registers."""
+    warps = -(-pairs // 32)
+    return [f"{pairs} pairs: {warps} blocks of 32 threads, {warps / sms:.2f} warps per SM "
+            f"on {sms} SMs"] + [line for line in lines if "registers" in line]
+
+
+def walk_bound(b: int, m: int, visited: int, start_bytes: int) -> float:
+    """Least time in ms of a walk: the records written (4 bytes a row of
+    every pair, 12 a pair of start outputs), one 32-byte sector of pointer
+    words a visited row, and the start inputs, over the card's memory
+    rate; its operations, a few a row, are far below their bound."""
+    return 1e3 * (4 * b * m + 12 * b + 32 * visited + start_bytes) / HBM_BYTES_PER_S
+
+
+def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
+                     splits: dict) -> list[dict]:
+    """B7, B8 at ALIGN_PAIRS x LENGTH x LENGTH (DNA default, BWA-MEM
+    affine) and B9, B10 at BANDED_PAIRS x BANDED_LEN, band BAND, SW and
+    NW: the median of 7 with min and max, the plain version (dense: the
+    full shape, PLAIN_REPS; banded: the BANDED_SLICE slice), the bound from
+    this run's visited rows, and ms a row of the longest chain."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_banded, cuda_walk
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
+    plain_dense, _ = _plain_walks()
+    sets = _param_sets()
+    tie = TieBreak.DIAG_UP_LEFT
+    rng = np.random.default_rng(11)
+    entries = []
+    for name, replaces in (("dna_default", "versalignlib_tpu/ops/walk.py:78"),
+                           ("dna_affine_bwamem", "versalignlib_tpu/ops/walk.py:162")):
+        params = sets[name]
+        b, m, n = ALIGN_PAIRS, LENGTH, LENGTH
+        r_np, f_np = codes_for(params, rng, b, m), codes_for(params, rng, b, n)
+        r, f = torch.from_numpy(r_np).to(dev), torch.from_numpy(f_np).to(dev)
+        mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+        mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
+        t = {}
+        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+            out = cuda_align.fill(r, f, mrp, params, alg, tie)
+            args = (*out, mrp, mxp, n, key == "sw", params.affine)
+            km = time_cuda(lambda: cuda_walk.walk(*args))
+            pl = time_cuda(lambda: plain_dense(*args), reps=PLAIN_REPS)
+            rec, sr = cuda_walk.walk(*args)[:2]
+            visited, chain = _visited_rows(rec, sr)
+            start_bytes = b * (16 if key == "sw" else 16 + 8 + 32)
+            bd = walk_bound(b, m, visited, start_bytes)
+            t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
+                      "plain_ms": pl["median"], "bound_ms": bd, "visited_rows": visited,
+                      "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain}
+            log(f"[times] walk.cu {name} {key} B={b} {m}x{n}: {km['median']:.3f} ms (min "
+                f"{km['min']:.3f}, max {km['max']:.3f}); plain {pl['median']:.1f} ms; bound "
+                f"{bd:.4f} ms (bytes: {visited} rows visited); longest chain {chain} rows, "
+                f"{t[key]['ns_per_chain_row']:.0f} ns a row")
+        kind = "affine" if params.affine else "linear"
+        entries.append(_walk_entry(f"walk[{kind}]", name, "versalignlib_tpu_torch/csrc/walk.cu",
+                                   replaces, launches[name], errs[f"walk[{kind}]"], (b, m, n), t,
+                                   splits.get(name)))
+    reads, refs = pairs
+    for name, replaces in (("dna_default", "versalignlib_tpu/ops/walk.py:324"),
+                           ("dna_affine_bwamem", "versalignlib_tpu/ops/walk.py:413")):
+        params = sets[name]
+        r, f, offs = _banded_inputs(reads, refs, BAND, None, dev)
+        b, m = r.shape
+        n = f.shape[1]
+        mrp = torch.from_numpy(cuda_align.last_valid_pos(reads, tie, params.matrix)).to(dev)
+        mxp = torch.from_numpy(cuda_align.last_valid_pos(refs, tie, params.matrix)).to(dev)
+        t = {}
+        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+            out = cuda_banded.fill(r, f, offs, mrp, params, alg, tie, BAND)
+            args = (*out, mrp, mxp, offs, n, BAND, key == "sw", params.affine)
+            km = time_cuda(lambda: cuda_walk.banded_walk(*args))
+            rec, sr = cuda_walk.banded_walk(*args)[:2]
+            visited, chain = _visited_rows(rec, sr)
+            start_bytes = b * (16 if key == "sw" else 8 + 4 * BAND)
+            bd = walk_bound(b, m, visited, start_bytes)
+            pl = plain_ms[name].get(key)
+            t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
+                      "plain_ms": pl, "bound_ms": bd, "visited_rows": visited,
+                      "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain}
+            log(f"[times] banded_walk.cu {name} {key} B={b} {m}x{n} band {BAND}: "
+                f"{km['median']:.3f} ms (min {km['min']:.3f}, max {km['max']:.3f}); plain "
+                f"{'not run' if pl is None else f'{pl:.1f} ms'} on {BANDED_SLICE} pairs; "
+                f"bound {bd:.4f} ms (bytes: {visited} rows "
+                f"visited); longest chain {chain} rows, {t[key]['ns_per_chain_row']:.0f} ns a row")
+            del out, args
+        kind = "affine" if params.affine else "linear"
+        entry = _walk_entry(f"banded_walk[{kind}]", name,
+                            "versalignlib_tpu_torch/csrc/banded_walk.cu", replaces,
+                            launches[f"banded:{name}"], errs[f"banded_walk[{kind}]"], (b, m, n),
+                            t, splits.get(f"banded:{name}"))
+        entry.update(band=BAND, plain_pairs=BANDED_SLICE)
+        entries.append(entry)
+    return entries
+
+
+def _walk_entry(name, params_name, source, replaces, launches, err, shape, t, split) -> dict:
+    sw, nw = t["sw"], t["nw"]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "tolerance": 0,
+        "ms": sw["ms"], "plain_ms": sw["plain_ms"], "bound_ms": sw["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "params": params_name, "shape": list(shape), "algorithm": "SW",
+        "ms_min": sw["ms_min"], "ms_max": sw["ms_max"], "visited_rows": sw["visited_rows"],
+        "longest_chain_rows": sw["longest_chain_rows"], "nw": nw, "matches_plain": True,
+        "split": split,
+    }
+
+
+class _DoneEvents:
+    """While active, each ``torch.cuda.Event()`` made without arguments (the
+    events the align paths record after a round's copies back) is a timing
+    event kept in ``events``, so that a copy's time is read against the
+    launch before it."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        real = self.real = torch.cuda.Event
+
+        def make(*args, **kw):
+            event = real(enable_timing=True)
+            if not args and not kw:
+                self.events.append(event)
+            return event
+
+        torch.cuda.Event = make
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.Event = self.real
+
+
+@contextlib.contextmanager
+def _split_timers(fill_kernel):
+    """Times each part of one align call as it runs: the fill and walk
+    launches (CUDA events), the copies back (from the last launch of a
+    round to its done event), the host replay or decode (host clock)."""
+    from versalignlib_tpu_torch.ops import banded, cuda_align, cuda_walk
+    from versalignlib_tpu_torch.ops import walk as walks
+
+    host = {"replay": [], "decode": []}
+    walk_kernel = (cuda_walk.BANDED_WALK_KERNEL if fill_kernel.source == "banded_align.cu"
+                   else cuda_walk.WALK_KERNEL)
+    decode_mod, decode_name = ((banded, "decode_banded_native")
+                               if fill_kernel.source == "banded_align.cu"
+                               else (cuda_align, "decode_batch_native"))
+    with _LaunchTimer(fill_kernel) as fill, _LaunchTimer(walk_kernel) as walk, \
+            _DoneEvents() as done, _host_timed(walks, "replay_batch", host["replay"]), \
+            _host_timed(decode_mod, decode_name, host["decode"]):
+        parts = {}
+        yield parts
+        torch.cuda.synchronize()
+        last = walk.events if walk.events else fill.events
+        if len(last) != len(done.events):
+            raise AssertionError(f"{len(last)} rounds launched, {len(done.events)} copied back")
+        parts.update(fill_ms=fill.ms(), walk_ms=walk.ms(),
+                     copy_ms=sum(e.elapsed_time(d) for (_, e), d in zip(last, done.events)),
+                     replay_ms=sum(host["replay"]), decode_ms=sum(host["decode"]))
+
+
+def align_wall_split(name: str, params, r_np: np.ndarray, f_np: np.ndarray) -> dict:
+    """``AlignmentEngine.compute_alignments(raw=True)`` on the codes, SW and
+    NW, with the walk on the card (the default) and off, each of REPS calls
+    split as it runs (``_split_timers``): fill + walk + records copy +
+    replay + rest, or fill + pointer copy + host decode + rest. The rest is
+    the wall less the parts: the codes' copies to the card, the memory-plan
+    gate, the host's own work; it is below zero where chunks overlap. Logs
+    and returns the medians."""
+    from versalignlib_tpu_torch import AlignmentEngine
+    from versalignlib_tpu_torch.ops.cuda_align import AFFINE_KERNEL, ALIGN_KERNEL
+    from versalignlib_tpu_torch.types import Algorithm
+
+    fill_kernel = AFFINE_KERNEL if params.affine else ALIGN_KERNEL
+    out = {}
+    for walk in (True, False):
+        engine = AlignmentEngine(params, device_walk=None if walk else False)
+        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+            engine.compute_alignments(alg, r_np, f_np, raw=True)
+            calls = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                with _split_timers(fill_kernel) as parts:
+                    t0 = time.perf_counter()
+                    engine.compute_alignments(alg, r_np, f_np, raw=True)
+                    wall = 1e3 * (time.perf_counter() - t0)
+                parts["wall_ms"] = wall
+                calls.append(parts)
+            keys = (("fill_ms", "walk_ms", "copy_ms", "replay_ms") if walk else
+                    ("fill_ms", "copy_ms", "decode_ms"))
+            med = {k: float(np.median([c[k] for c in calls])) for k in keys + ("wall_ms",)}
+            med["rest_ms"] = med["wall_ms"] - sum(med[k] for k in keys)
+            med["wall_min_ms"] = min(c["wall_ms"] for c in calls)
+            med["wall_max_ms"] = max(c["wall_ms"] for c in calls)
+            out[f"{key}_{'walk_on' if walk else 'walk_off'}"] = med
+            log(f"[times] compute_alignments(raw=True) {name} {key} walk "
+                f"{'on the card' if walk else 'on the host'} B={r_np.shape[0]} "
+                f"{r_np.shape[1]}x{f_np.shape[1]}, medians of {REPS} calls: "
+                + json.dumps({k: round(v, 3) for k, v in med.items()}))
+    return out
+
+
+def phase_long_round(rng, genome: np.ndarray) -> dict:
+    """One round of ``banded_align_batch`` with the walk on the card:
+    LONG_ROUND_PAIRS HiFi-like copies of genome windows of LONG_ROUND_LEN
+    bp, DNA linear SW at band BAND (one wave, ``chunk_pairs_for`` under
+    ``WALK_CHUNK_PTR_BYTES``), split into fill, walk, records copy, replay
+    and rest; LONG_ROUND_CHECK pairs == the host walk's output."""
+    from versalignlib_tpu_torch.ops import cuda_banded
+    from versalignlib_tpu_torch.ops.banded import banded_align_batch
+    from versalignlib_tpu_torch.types import Algorithm
+
+    t0 = time.perf_counter()
+    starts = rng.integers(0, genome.shape[0] - LONG_ROUND_LEN + 1, size=LONG_ROUND_PAIRS)
+    refs = np.stack([genome[s:s + LONG_ROUND_LEN] for s in starts])
+    reads = np.stack([hifi_copy(rng, f, LONG_ROUND_LEN) for f in refs])
+    data_s = time.perf_counter() - t0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rounds = cuda_banded.chunk_pairs_for(LONG_ROUND_LEN, BAND, sms,
+                                         cuda_banded.WALK_CHUNK_PTR_BYTES)
+    if rounds < LONG_ROUND_PAIRS:
+        raise AssertionError(f"{LONG_ROUND_PAIRS} pairs of {LONG_ROUND_LEN} take more than one "
+                             f"round ({rounds} pairs a round)")
+    params = _param_sets()["dna_default"]
+    alg = Algorithm.SMITH_WATERMAN
+
+    def run():
+        return banded_align_batch(reads, refs, params, alg, band=BAND, raw=True)
+
+    run_out, info = _run_banded(f"{LONG_ROUND_PAIRS} x {LONG_ROUND_LEN} round", run,
+                                ("banded_align", "banded_walk"))
+    if info["launches"] != {"banded_align": 1, "banded_walk": 1}:
+        raise AssertionError(f"the round took launches {info['launches']}, not one each")
+    pick = np.arange(LONG_ROUND_CHECK)
+    want = banded_align_batch(reads[pick], refs[pick], params, alg, band=BAND, raw=True,
+                              device_walk=False)
+    for col in ("meta", "cigar", "read_gapped", "ref_gapped"):
+        if not np.array_equal(getattr(run_out, col)[pick], getattr(want, col)):
+            raise AssertionError(f"the {LONG_ROUND_LEN} bp round's {col} differs from the "
+                                 "host walk")
+    if (run_out.scores <= 0).any():
+        raise AssertionError(f"the {LONG_ROUND_LEN} bp round has pairs that score 0")
+    split = info["split"]
+    log(f"[longround] {LONG_ROUND_PAIRS} pairs of {LONG_ROUND_LEN} bp, band {BAND}, walk on the "
+        f"card (data {data_s:.1f} s): " + json.dumps({k: round(v, 3) for k, v in split.items()})
+        + f"; {LONG_ROUND_CHECK} pairs == the host walk")
+    return {"pairs": LONG_ROUND_PAIRS, "length": LONG_ROUND_LEN, "split": split}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2341,6 +2918,9 @@ def main() -> int:
                 log(f"[build] {src} launch: {line}")
     for line in score_geometry(reg_lines["score.cu"], sms):
         log(f"[build] score.cu launch: {line}")
+    for src, pairs in (("walk.cu", ALIGN_PAIRS), ("banded_walk.cu", BANDED_PAIRS)):
+        for line in walk_geometry(reg_lines[src], pairs, sms):
+            log(f"[build] {src} launch: {line}")
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
@@ -2352,7 +2932,8 @@ def main() -> int:
     main_path = phase_main_path(rng)
     log(f"[phase] main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels = phase_times(rng, dev, main_path, errs)
+    splits: dict = {}
+    kernels = phase_times(rng, dev, main_path, errs, splits)
     log(f"[phase] times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     data = make_search_data(rng)
@@ -2373,6 +2954,9 @@ def main() -> int:
     pairs = make_banded_pairs(rng, genome)
     log(f"[phase] banded data: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    walk_errs, walk_plain = phase_walk_vs_plain(edge_rng(args.seed, 10), dev, pairs)
+    log(f"[phase] walks vs plain: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     edge_errs = phase_banded_edges(edge_rng(args.seed), dev)
     banded_errs, banded_plain = phase_banded_kernels_vs_plain(rng, dev, pairs)
     banded_errs = merge_errs(edge_errs, banded_errs)
@@ -2384,9 +2968,28 @@ def main() -> int:
     longreads = phase_long_reads(rng, genome)
     log(f"[phase] long reads: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    long_round = phase_long_round(edge_rng(args.seed, 11), genome)
+    log(f"[phase] one round of {LONG_ROUND_PAIRS} x {LONG_ROUND_LEN} bp: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     kernels += phase_banded_times(rng, dev, pairs, banded_errs, banded_plain, banded_runs,
                                   longreads)
-    log(f"[phase] banded times: {time.perf_counter() - t0:.1f} s; whole script "
+    log(f"[phase] banded times: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sets = _param_sets()
+    launches = {name: sum(main_path[p]["launches"]["walk"] for p in sets
+                          if sets[p].affine == sets[name].affine)
+                for name in ("dna_default", "dna_affine_bwamem")}
+    for name in ("dna_default", "dna_affine_bwamem"):
+        launches[f"banded:{name}"] = sum(v["walk_launches"] for v in banded_runs.values()
+                                         if isinstance(v, dict) and v["params"] == name)
+        splits[f"banded:{name}"] = {k: v["align_split"] for k, v in banded_runs.items()
+                                    if isinstance(v, dict) and v["params"] == name}
+    launches["banded:dna_default"] += longreads["walk_launches"]
+    splits["banded:dna_default"].update(map_long_reads=longreads["split"],
+                                        long_round=long_round)
+    kernels += phase_walk_times(dev, pairs, walk_errs, walk_plain, launches, splits)
+    log(f"[phase] walk times: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,11 +2,12 @@
 
     python3 scripts/torch_banded_phases.py [--seed N]
 
-Builds the two banded kernels (csrc/banded_score.cu, csrc/banded_align.cu),
-then runs chip_smoke's phases 8-11 on the data they are given there: every
-B5 / B6 branch against its plain version (the row layout's edges first),
-the banded models on 1024 pairs of 16 kbp, ``map_long_reads`` against the
-4.64 Mbp genome, and the kernels' times; it prints the same log lines and a
+Builds the banded kernels (csrc/banded_score.cu, csrc/banded_align.cu and
+the walk csrc/banded_walk.cu), then runs chip_smoke's phases 9-12 on the
+data they are given there: every B5 / B6 branch against its plain version
+(the row layout's edges first), the banded models on 1024 pairs of 16 kbp
+(walk on the card == walk on the host), ``map_long_reads`` against the
+4.64 Mbp genome, and the B5 / B6 times; it prints the same log lines and a
 ``{"kernels": [...]}`` line with the B5 and B6 entries. A few minutes: the
 quick check after an edit of a banded source.
 """
@@ -37,7 +38,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     cs.log(f"[card] {cs.nvidia_smi_line()}")
-    cs.log(f"[build] {_build.build(['banded_score.cu', 'banded_align.cu'])}")
+    cs.log(f"[build] {_build.build(['banded_score.cu', 'banded_align.cu', 'banded_walk.cu'])}")
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
     genome = cs.make_genome(rng)[1]

@@ -215,9 +215,17 @@ def test_empty_axes_and_device_walk():
             assert [_fields(a) for a in got] == [_fields(a) for a in want]
             np.testing.assert_array_equal(banded_score_batch(r, f, p, alg, device="cpu"),
                                           np.zeros(2, np.int32))
-    with pytest.raises(NotImplementedError, match="A5"):
-        banded_align_batch(refs, refs, p, Algorithm.SMITH_WATERMAN, device="cpu",
-                           device_walk=True)
+    # The walk on the device (here the plain banded walk of ops/walk.py)
+    # gives what the host walk gives, in every (algorithm, gap model).
+    rng = np.random.default_rng(17)
+    reads = random_codes(rng, 6, 30, padded=True, n_prob=0.05)
+    refs36 = random_codes(rng, 6, 36, padded=True, n_prob=0.05)
+    for name in ("dna_linear", "dna_affine"):
+        for alg in Algorithm:
+            args = (reads, refs36, _SETS[name][1], alg)
+            walked = banded_align_batch(*args, band=12, device="cpu", device_walk=True)
+            host = banded_align_batch(*args, band=12, device="cpu", device_walk=False)
+            assert [_fields(a) for a in walked] == [_fields(a) for a in host]
 
 
 def test_plans_and_rounds():
@@ -240,8 +248,10 @@ def test_plans_and_rounds():
     assert not cuda_banded.rows_in_shared(16000, p)
     # The refs are copied with 16 bytes of padding; rows in device memory
     # are 34 words a slot and 505 slots (csrc/banded.cuh) at 16000.
+    # The align plan counts the walk's records, start outputs and mxp too.
     plan = cuda_banded.banded_mem_plan(100, 120, 64, 10, p)
-    assert plan == 10 * (100 + 2 * 120 + 4 * 100 * 8 + 16 + 4 * 64 + 4) + 400 + 16
+    assert plan == 10 * (100 + 2 * 120 + 4 * 100 * 8 + 16 + 4 * 64 + 4 + 4 * 100 + 16) \
+        + 400 + 16
     wide = cuda_banded.banded_mem_plan(100, 16000, 16000, 10, p, "score")
     assert wide == 10 * (100 + 2 * 16000 + 4 * 2 * 34 * 505 + 4) + 400 + 16
 
@@ -277,9 +287,11 @@ def test_dense_models_match_jax():
     np.testing.assert_array_equal(prot.score(seqs, seqs[::-1], device="cpu"),
                                   jax_models.protein_smith_waterman().score(
                                       seqs, seqs[::-1], backend="xla"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        dataclasses.replace(models.smith_waterman(), device_walk=True).align(
-            reads, refs, device="cpu")
+    for name in ("smith_waterman", "affine_needleman_wunsch"):
+        model = getattr(models, name)()
+        walked = dataclasses.replace(model, device_walk=True).align(reads, refs, device="cpu")
+        assert [_fields(a) for a in walked] == \
+            [_fields(a) for a in model.align(reads, refs, device="cpu")]
     with pytest.raises(KeyError):
         models.smith_waterman().score(reads, refs, backend="pallas", device="cpu")
 

@@ -118,8 +118,9 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_modes_raise():
-    """The device walk (ROADMAP A5) still raises; affine and matrix
-    parameters, ported since, compute what the JAX oracles compute."""
+    """The device walk (ROADMAP A5), ported since as the affine and matrix
+    parameters were, gives what the host walk gives; affine and matrix
+    parameters compute what the JAX oracles compute."""
     import dataclasses
 
     from versalignlib_tpu.ops import gotoh, oracle
@@ -129,9 +130,11 @@ def test_unported_modes_raise():
 
     reads = np.ones((2, 5), np.uint8)
     refs = np.ones((2, 6), np.uint8)
-    with pytest.raises(NotImplementedError, match="A5"):
-        AlignmentEngine(device="cpu", device_walk=True).compute_alignments(
-            Algorithm.SMITH_WATERMAN, reads, refs)
+    for alg in Algorithm:
+        walked = AlignmentEngine(device="cpu", device_walk=True).compute_alignments(
+            alg, reads, refs)
+        assert walked == AlignmentEngine(device="cpu", device_walk=False).compute_alignments(
+            alg, reads, refs)
     reads = np.array([[1, 2, 1, 2, 0], [2, 2, 1, 1, 1]], np.uint8)
     refs = np.array([[2, 1, 2, 1, 1, 0], [1, 1, 2, 2, 1, 2]], np.uint8)
     for p, score, align in ((_AFFINE, gotoh.score_alignments_affine,

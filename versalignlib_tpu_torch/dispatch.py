@@ -40,7 +40,7 @@ class Backend(Protocol):
 
     def compute_alignments(
         self, algorithm: Algorithm, reads: np.ndarray, refs: np.ndarray,
-        params: AlignmentParameters, tie: TieBreak, device_walk: bool = False,
+        params: AlignmentParameters, tie: TieBreak, device_walk: bool | None = None,
         raw: bool = False, gapped: bool = True,
     ) -> list[Alignment] | AlignmentBatch: ...
 
@@ -106,12 +106,13 @@ class AlignmentEngine:
         backend: str = "auto",
         tie: TieBreak = TieBreak.DIAG_UP_LEFT,
         device: torch.device | str = "cuda",
-        device_walk: bool = False,
+        device_walk: bool | None = None,
     ) -> None:
         """``device``: ``"cuda"`` (default; raises without a card) or
-        ``"cpu"`` for the plain PyTorch path. ``device_walk=True`` asks for
-        the traceback walk on the device, which is not ported yet (ROADMAP
-        A5) and raises at ``compute_alignments``."""
+        ``"cpu"`` for the plain PyTorch path. ``device_walk``: the traceback
+        walk on the device, so that only row records come back to the host;
+        None (the default) walks on the card for CUDA and on the host for
+        the CPU, and True on the CPU runs the plain walk."""
         self.params = params
         self.device = _resolve_device(device)
         self.backend = get_backend(backend, self.device)

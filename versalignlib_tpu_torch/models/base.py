@@ -30,8 +30,8 @@ class AlignmentModel:
     banded: bool = False
     band: int = 512
     band_tile: int = 256
-    #: traceback walk on the device: not ported yet (ROADMAP A5), so True
-    #: raises at align() time; None and False walk on the host.
+    #: traceback walk on the device (only row records come back to the
+    #: host); None walks on the card for CUDA and on the host for the CPU.
     device_walk: bool | None = None
     #: custom alphabet string for encoding (None = the reference DNA table);
     #: char i maps to code i+1, code 0 stays the padding sentinel.
@@ -81,4 +81,4 @@ class AlignmentModel:
 
         be = get_backend(backend, _resolve_device(device))
         return be.compute_alignments(self.algorithm, reads_enc, refs_enc, self.params,
-                                     self.tie, device_walk=bool(self.device_walk))
+                                     self.tie, device_walk=self.device_walk)

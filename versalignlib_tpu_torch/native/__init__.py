@@ -1,7 +1,8 @@
 """Host traceback decoder (C++), built with g++ at first use and loaded with
 ctypes.
 
-The port's copy of the loader and ``decode_batch_native`` of
+The port's copy of the loader, ``decode_batch_native``,
+``decode_banded_native`` and ``replay_records_native`` of
 ``versalignlib_tpu/native``. There is no Python fallback: a failed build
 raises, because the decoder is on the alignment path.
 """
@@ -105,16 +106,26 @@ def decode_batch_native(
     list of :class:`Alignment` objects; ``gapped=False`` (raw only) skips the
     gapped-string columns.
     """
-    lib = _load()
     words, pack = ptr
     ptr_arr = np.ascontiguousarray(words, dtype=np.int32)
+    b, m = np.shape(reads)
+    n = np.shape(refs)[1]
+    if ptr_arr.shape != (b, m, -(-n // pack)):
+        raise ValueError(f"pointer words {ptr_arr.shape} do not match "
+                         f"{b} pairs of {m}x{n} at {pack} codes per word")
+    return _decode(ptr_arr, 1, pack, reads, refs, start_read_pos, start_ref_pos, params,
+                   algorithm, scores, read_texts, ref_texts, n_threads, affine, raw, gapped)
+
+
+def _decode(ptr_arr, kind, pack, reads, refs, start_read_pos, start_ref_pos, params,
+            algorithm, scores, read_texts, ref_texts, n_threads, affine, raw, gapped):
+    """One ``val_decode_batch`` call over pointer data of ``kind`` (1 packed
+    words, 2 walk records), already checked against the pairs' shape."""
+    lib = _load()
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
     refs = np.ascontiguousarray(refs, dtype=np.uint8)
     b, m = reads.shape
     n = refs.shape[1]
-    if ptr_arr.shape != (b, m, -(-n // pack)):
-        raise ValueError(f"pointer words {ptr_arr.shape} do not match "
-                         f"{b} pairs of {m}x{n} at {pack} codes per word")
     start_r = np.ascontiguousarray(start_read_pos, dtype=np.int32)
     start_f = np.ascontiguousarray(start_ref_pos, dtype=np.int32)
     scores_arr = (
@@ -145,7 +156,7 @@ def decode_batch_native(
         n_threads = min(os.cpu_count() or 1, 8)
 
     rc = lib.val_decode_batch(
-        ptr_arr.ctypes.data_as(ctypes.c_void_p), 1, pack,
+        ptr_arr.ctypes.data_as(ctypes.c_void_p), kind, pack,
         reads.ctypes.data_as(ctypes.c_void_p), refs.ctypes.data_as(ctypes.c_void_p),
         rt_buf, ft_buf,
         start_r.ctypes.data_as(ctypes.c_void_p),
@@ -166,6 +177,38 @@ def decode_batch_native(
     if rc != 0:
         raise RuntimeError(f"val_decode_batch failed: {rc}")
     return _results(read_g, ref_g, cigar, meta, raw)
+
+
+def replay_records_native(
+    records: np.ndarray,  # (b, m) int32 walk records (ops/walk.py)
+    reads: np.ndarray,
+    refs: np.ndarray,
+    start_read_pos: np.ndarray,
+    start_ref_pos: np.ndarray,
+    scores: np.ndarray,
+    params,
+    algorithm,
+    read_texts: list[str] | None = None,
+    ref_texts: list[str] | None = None,
+    n_threads: int | None = None,
+    raw: bool = False,
+    gapped: bool = True,
+):
+    """Replay the traceback walks' row records (``ops/walk.py``: one
+    ``left_count*4 | exit_code`` int32 per read row) through the C++ walker,
+    the counterpart of ``versalignlib_tpu.native.replay_records_native``.
+    Same outputs as :func:`decode_batch_native` on the pointer words the
+    records were walked from, for every gap model and for the banded walks
+    too: records carry no Gotoh state, so they always take the decoder's
+    linear records mode (kind 2; its affine walker has no records mode).
+    """
+    records = np.ascontiguousarray(records, dtype=np.int32)
+    b, m = np.shape(reads)
+    if records.shape != (b, m):
+        raise ValueError(f"walk records {records.shape} do not match {b} pairs of "
+                         f"{m} read rows")
+    return _decode(records, 2, 16, reads, refs, start_read_pos, start_ref_pos, params,
+                   algorithm, scores, read_texts, ref_texts, n_threads, False, raw, gapped)
 
 
 def _results(read_g, ref_g, cigar, meta, raw: bool):

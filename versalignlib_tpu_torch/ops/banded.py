@@ -6,9 +6,11 @@ A diagonal band of ``band`` columns follows the main diagonal with per-row
 start ``o(i) = clamp(i*n//m - band/2, 0, n - band)``; cells outside it are
 -inf (an approximation by construction, exact when the band covers the
 ref). Scores come from ``csrc/banded_score.cu``; alignments from
-``csrc/banded_align.cu``, which writes band-relative pointer rows, and the
-native host walk. A tensor on the CPU takes the plain versions
-(``ops/plain_banded.py``); on the card the kernels launch or raise.
+``csrc/banded_align.cu``, which writes band-relative pointer rows, and a
+walk of them: on the card ``csrc/banded_walk.cu`` with a replay of its row
+records on the host, or the native host walk. A tensor on the CPU takes the
+plain versions (``ops/plain_banded.py``, ``ops/walk.py``); on the card the
+kernels launch or raise.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch
 
 from versalignlib_tpu_torch.dispatch import _resolve_device
 from versalignlib_tpu_torch.native import decode_banded_native
-from versalignlib_tpu_torch.ops import cuda_banded
+from versalignlib_tpu_torch.ops import cuda_banded, cuda_walk
 from versalignlib_tpu_torch.ops import traceback as tb
+from versalignlib_tpu_torch.ops import walk as walks
 from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos as _last_valid_pos
 from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK, nw_end_cells
 from versalignlib_tpu_torch.params import AlignmentParameters
@@ -98,27 +101,27 @@ def banded_align_batch(
     device_walk: bool | None = None,
     gapped: bool = True,
 ):
-    """Banded full alignment: pointer fill on ``device``, band walk on the
-    host. Semantics: ``banded_align_oracle`` (both tie flavors, linear and
-    affine gaps).
+    """Banded full alignment: pointer fill on ``device``, then the band
+    walk: with ``device_walk`` on the device too (``ops/cuda_walk.py``),
+    whose row records the host replays, else on the host. None, the
+    default, walks on the card for CUDA and on the host for the CPU, as the
+    JAX package walks on the device when compiled. Semantics:
+    ``banded_align_oracle`` (both tie flavors, linear and affine gaps).
 
     ``tile`` is accepted for the JAX signature and changes nothing: the
     kernel has no row tiles, and the JAX package's outputs do not depend on
     them. Pairs go through in rounds of ``chunk_pairs`` (default
-    ``cuda_banded.chunk_pairs_for``: at most 2.25 GiB of pointer words, in
-    whole waves of four pairs per SM); the fill of round k+1 is queued
-    before round k is decoded, and the pointer words come back into two
+    ``cuda_banded.chunk_pairs_for``: at most 2.25 GiB of pointer words, or
+    with the walk on the device, where they stay, 16 GiB; in whole waves of
+    four pairs per SM); the fill of round k+1 is queued before round k is
+    decoded, and the pointer words or the records come back into two
     page-locked buffers that later calls reuse
-    (``cuda_banded.PINNED.release()`` frees them). ``device_walk=True``
-    asks for the walk on the device, which is not ported yet (ROADMAP A5); None and False walk on the host. Returns a
-    list of :class:`Alignment`, or with ``raw=True`` an
-    :class:`AlignmentBatch` (``gapped=False``: without the gapped strings).
+    (``cuda_banded.PINNED.release()`` frees them). Returns a list of
+    :class:`Alignment`, or with ``raw=True`` an :class:`AlignmentBatch`
+    (``gapped=False``: without the gapped strings).
     """
-    if device_walk:
-        raise NotImplementedError(
-            "the banded traceback walk on the device is not ported yet (ROADMAP A5); "
-            "use device_walk=None or False, which walks on the host")
     device = _resolve_device(device)
+    device_walk = cuda_walk.resolve_device_walk(device_walk, device)
     algorithm = Algorithm(algorithm)
     tie = TieBreak.DIAG_UP_LEFT if tie is None else TieBreak(tie)
     local = algorithm == Algorithm.SMITH_WATERMAN
@@ -139,34 +142,51 @@ def banded_align_batch(
     on_card = device.type == "cuda"
     if chunk_pairs is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count if on_card else 1
-        chunk_pairs = cuda_banded.chunk_pairs_for(m, band, sms)
+        chunk_pairs = cuda_banded.chunk_pairs_for(
+            m, band, sms,
+            cuda_banded.WALK_CHUNK_PTR_BYTES if device_walk else cuda_banded.CHUNK_PTR_BYTES)
 
     def dispatch(k, lo):
         r_np, f_np = reads[lo:lo + chunk_pairs], refs[lo:lo + chunk_pairs]
         mrp = mrp_all[lo:lo + chunk_pairs]
+        mrp_dev = torch.from_numpy(mrp).to(device)
         out = cuda_banded.fill(torch.from_numpy(r_np).to(device),
-                               torch.from_numpy(f_np).to(device), offsets,
-                               torch.from_numpy(mrp).to(device), params, algorithm, tie,
-                               band)
-        done = None
-        if on_card:
-            # Queue the copies back, the pointer words into this round's
-            # page-locked buffer, so that the host decodes the previous round
-            # meanwhile.
-            ptr, small = out[0], (out[1] if local else out[2])
-            host_ptr = cuda_banded.PINNED.take(k % 2, tuple(ptr.shape))
-            host_ptr.copy_(ptr, non_blocking=True)
-            host_small = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
-            host_small.copy_(small, non_blocking=True)
-            out = (host_ptr, host_small, None) if local else (host_ptr, None, host_small)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
+                               torch.from_numpy(f_np).to(device), offsets, mrp_dev, params,
+                               algorithm, tie, band)
+        if device_walk:
+            # The pointer words stay where the fill left them; only the
+            # records and start cells come back.
+            mxp = torch.from_numpy(max_ref_all[lo:lo + chunk_pairs]).to(device)
+            out = cuda_walk.banded_walk(*out, mrp_dev, mxp, offsets, n, band, local,
+                                        params.affine)
+        if not on_card:
+            return lo, r_np, f_np, mrp, out, None
+        # Queue the copies back, the large one (records, or pointer words)
+        # into this round's page-locked buffer, so that the host replays or
+        # decodes the previous round meanwhile.
+        big, small = out[0], torch.stack(out[1:]) if device_walk else \
+            (out[1] if local else out[2])
+        host_big = cuda_banded.PINNED.take(k % 2, tuple(big.shape))
+        host_big.copy_(big, non_blocking=True)
+        host_small = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
+        host_small.copy_(small, non_blocking=True)
+        if device_walk:
+            out = (host_big, *host_small)
+        else:
+            out = (host_big, host_small, None) if local else (host_big, None, host_small)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
         return lo, r_np, f_np, mrp, out, done
 
     def decode(entry):
-        lo, r_np, f_np, mrp, (ptr, best, keep), done = entry
+        lo, r_np, f_np, mrp, out, done = entry
         if done is not None:
             done.synchronize()
+        if device_walk:
+            records, start_r, start_f, scores = (x.numpy() for x in out)
+            return walks.replay_batch(records, r_np, f_np, start_r, start_f, scores, params,
+                                      algorithm, raw=raw, gapped=gapped)
+        ptr, best, keep = out
         if local:
             best = best.numpy()
             start_r, start_f, scores = best[:, 1], best[:, 2], best[:, 0]

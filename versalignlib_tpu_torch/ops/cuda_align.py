@@ -1,12 +1,15 @@
 """Full alignment through ``csrc/align.cu`` or ``csrc/align_affine.cu`` and
-the host decoder — the counterpart of ``versalignlib_tpu/ops/pallas_align.py``
+a traceback walk — the counterpart of ``versalignlib_tpu/ops/pallas_align.py``
 (``pallas_align_batch``, ``pallas_align_affine_batch`` and their
 ``_decode_chunk`` / ``_decode_affine_chunk``).
 
 The device fills packed pointer words (2-bit linear codes, 16 per word, or
-4-bit Gotoh codes, 8 per word), the aux word and (NW) ``hsel``; the host
-derives each pair's traceback start cell and score from them and walks the
-pointers with the native decoder. Pairs go through in chunks sized by a
+4-bit Gotoh codes, 8 per word), the aux word and (NW) ``hsel``. With
+``device_walk`` the walk runs where the fill ran (``ops/cuda_walk.py``: on
+the card ``csrc/walk.cu``), only its row records and start cells come back,
+and the host replays them (``walk.replay_batch``); otherwise the pointer
+words come back, the host derives each pair's start cell and score and
+walks them with the native decoder. Pairs go through in chunks sized by a
 budget of device memory, and the fill of chunk k+1 is queued before chunk k
 is decoded, so the card works while the host walks.
 
@@ -25,8 +28,9 @@ import torch
 
 from versalignlib_tpu_torch.alphabet import base_score_matrix, make_validity, valid_code_mask
 from versalignlib_tpu_torch.native import decode_batch_native
-from versalignlib_tpu_torch.ops import plain
+from versalignlib_tpu_torch.ops import cuda_walk, plain
 from versalignlib_tpu_torch.ops import traceback as tb
+from versalignlib_tpu_torch.ops import walk as walks
 from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.ops.cuda_score import check_codes
 from versalignlib_tpu_torch.params import AlignmentParameters
@@ -68,13 +72,15 @@ def edge_words(affine: bool) -> int:
 
 
 def align_mem_plan(m: int, n: int, batch: int, affine: bool = False) -> int:
-    """Device bytes the fill allocates for ``batch`` pairs of m x n: the
-    codes, mrp, the two boundary columns between stripes (only past one
-    stripe of :data:`STRIPE` columns), the packed pointers (16 codes per
-    word, 8 when affine), aux and hsel."""
+    """Device bytes the fill and the walk allocate for ``batch`` pairs of m
+    x n: the codes, mrp, the two boundary columns between stripes (only past
+    one stripe of :data:`STRIPE` columns), the packed pointers (16 codes per
+    word, 8 when affine), aux and hsel; then the walk's records (4 bytes a
+    row) and its three start outputs, and mxp."""
     nc = -(-n // (AFFINE_PACK if affine else PACK))
     edge = 2 * m * edge_words(affine) if n > STRIPE else 0
-    return batch * ((m + n) + 4 + 4 * edge + 4 * m * nc + 16 + 4 * (n + 1))
+    fill_bytes = (m + n) + 4 + 4 * edge + 4 * m * nc + 16 + 4 * (n + 1)
+    return batch * (fill_bytes + 4 * m + 12 + 4)
 
 
 def chunk_pairs_for(m: int, n: int, sm_count: int, pack: int = PACK) -> int:
@@ -217,17 +223,17 @@ def align_batch(
     gapped: bool = True,
 ):
     """Full-batch alignment of (B, m), (B, n) uint8 codes: pointer fill on
-    ``device``, traceback on the host. Affine parameters go through the
-    Gotoh fill and walk, as ``pallas_align_batch`` routes them.
+    ``device``; with ``device_walk`` the traceback walk there too and a
+    replay of its records on the host, else the walk on the host (the
+    default here, as ``pallas_align_batch`` has it; the backend resolves
+    its own default with ``cuda_walk.resolve_device_walk``). Affine
+    parameters go through the Gotoh fill and walk, as
+    ``pallas_align_batch`` routes them.
 
     Returns a list of :class:`Alignment`, or with ``raw=True`` an
     :class:`AlignmentBatch` column store; ``gapped=False`` (raw only) leaves
     out the gapped strings.
     """
-    if device_walk:
-        raise NotImplementedError(
-            "the traceback walk on the device is not ported yet (ROADMAP A5); "
-            "use device_walk=False, which walks on the host")
     algorithm = Algorithm(algorithm)
     tie = TieBreak(tie)
     local = algorithm == Algorithm.SMITH_WATERMAN
@@ -252,9 +258,14 @@ def align_batch(
         r_np = np.ascontiguousarray(reads[lo:lo + chunk_pairs], np.uint8)
         f_np = np.ascontiguousarray(refs[lo:lo + chunk_pairs], np.uint8)
         mrp = last_valid_pos(r_np, tie, params.matrix)
+        mrp_dev = torch.from_numpy(mrp).to(device)
         out = fill(torch.from_numpy(r_np).to(device),
-                   torch.from_numpy(f_np).to(device),
-                   torch.from_numpy(mrp).to(device), params, algorithm, tie)
+                   torch.from_numpy(f_np).to(device), mrp_dev, params, algorithm, tie)
+        if device_walk:
+            # The walk reads the pointer words where the fill left them; only
+            # its records and start cells leave the device.
+            mxp = torch.from_numpy(last_valid_pos(f_np, tie, params.matrix)).to(device)
+            out = cuda_walk.walk(*out, mrp_dev, mxp, n, local, affine)
         done = None
         if device.type == "cuda":
             # Queue the copies back into page-locked memory, so that the
@@ -267,19 +278,23 @@ def align_batch(
         return lo, r_np, f_np, mrp, out, done
 
     def decode(entry):
-        lo, r_np, f_np, mrp, (ptr, aux, hsel), done = entry
+        lo, r_np, f_np, mrp, out, done = entry
         if done is not None:
             done.synchronize()
+        nb = r_np.shape[0]
+        texts = (None if read_texts is None else read_texts[lo:lo + nb],
+                 None if ref_texts is None else ref_texts[lo:lo + nb])
+        if device_walk:
+            records, start_r, start_f, scores = (x.numpy() for x in out)
+            return walks.replay_batch(records, r_np, f_np, start_r, start_f, scores, params,
+                                      algorithm, *texts, raw=raw, gapped=gapped)
+        ptr, aux, hsel = out
         start_r, start_f, scores = start_cells(
             aux.numpy(), None if hsel is None else hsel.numpy(), mrp, f_np,
             tie, local, params.matrix)
-        nb = r_np.shape[0]
         return decode_batch_native(
             (ptr.numpy(), pack), r_np, f_np, start_r, start_f, params,
-            algorithm, scores,
-            None if read_texts is None else read_texts[lo:lo + nb],
-            None if ref_texts is None else ref_texts[lo:lo + nb],
-            affine=affine, raw=raw, gapped=gapped)
+            algorithm, scores, *texts, affine=affine, raw=raw, gapped=gapped)
 
     results = []
     pending = None

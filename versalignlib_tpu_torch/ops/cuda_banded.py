@@ -128,14 +128,16 @@ def banded_mem_plan(m: int, n: int, band: int, batch: int,
     """Device bytes one launch of ``batch`` pairs of m x n allocates:
     the codes, the padded copy of the refs, the band starts, the rows when
     they do not fit shared memory, and the outputs: scores (``kind``
-    "score"), or the pointer words, SW best, NW keep and mrp ("align")."""
+    "score"), or the pointer words, SW best, NW keep and mrp ("align"),
+    with what the walk that follows adds: its records (4 bytes a row), its
+    three start outputs and mxp."""
     rows = 0 if rows_in_shared(band, params) else 4 * _row_words(lane_cols(band),
                                                                  params.affine)
     per_pair = m + 2 * n + rows
     if kind == "score":
         per_pair += 4
     else:
-        per_pair += 4 * m * -(-band // BAND_PACK) + 16 + 4 * band + 4
+        per_pair += 4 * m * -(-band // BAND_PACK) + 16 + 4 * band + 4 + 4 * m + 16
     return batch * per_pair + 4 * m + REF_PAD
 
 
@@ -235,19 +237,26 @@ def fill(reads: torch.Tensor, refs: torch.Tensor, offsets: np.ndarray,
 #: holds a whole wave; longer pairs get fewer per round (94 at 100 kbp),
 #: never more bytes.
 CHUNK_PTR_BYTES = 9 << 28
+#: Pointer bytes per round when the walk runs on the device: the words then
+#: never leave it, so a round is held by device memory alone. 16 GiB is
+#: 3696 pairs of 16 kbp at band 512 (seven waves) and a wave of 528 at 100
+#: kbp (25.6 MB each), where the page-locked cap leaves 94.
+WALK_CHUNK_PTR_BYTES = 1 << 34
 #: A wave of the fill: one warp per pair and one warp per SM partition. A
 #: launch takes the time of one wave up to this many pairs per SM, and one
 #: more wave for each part of a wave past it.
 WAVE_PAIRS_PER_SM = 4
 
 
-def chunk_pairs_for(m: int, band: int, sm_count: int) -> int:
-    """Pairs per device round: as many as :data:`CHUNK_PTR_BYTES` of pointer
-    words hold, at least one, and where that is a wave
+def chunk_pairs_for(m: int, band: int, sm_count: int,
+                    ptr_bytes: int = CHUNK_PTR_BYTES) -> int:
+    """Pairs per device round: as many as ``ptr_bytes`` of pointer words
+    hold (:data:`CHUNK_PTR_BYTES`, or :data:`WALK_CHUNK_PTR_BYTES` with the
+    walk on the device), at least one, and where that is a wave
     (:data:`WAVE_PAIRS_PER_SM` per SM, 528 on an H100) or more, a whole
     number of waves."""
     per_pair = 4 * m * -(-band // BAND_PACK)
-    pairs = max(1, CHUNK_PTR_BYTES // max(per_pair, 1))
+    pairs = max(1, ptr_bytes // max(per_pair, 1))
     wave = WAVE_PAIRS_PER_SM * sm_count
     return pairs // wave * wave if pairs >= wave else pairs
 
