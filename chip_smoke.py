@@ -132,7 +132,24 @@ Phases (any failure exits non-zero before a result is printed):
     on the 32-pair slice, the bounds; times of B7-B10 (4096 x 512 x 512;
     1024 x 16 kbp, band 512), their plain versions, their bounds from the
     rows this run's walks visited (``walk_bound``);
-13. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+13. the command line (``phase_cli``): every mode of ``CLI_MODES``
+    (pairwise SW and NW with SAM and BAM, ``--reference-compat``, ``--tie
+    sse``, ``--gap-open``, ``--matrix blosum62``; ``--panel`` with
+    ``--both-strands``, ``--reads2`` and ``--stats``; ``--reference`` and
+    ``--reference --long``; ``--band`` linear and affine; ``--pssm-from``;
+    ``--translated``) and ``--selftest --bench`` on small seeded files
+    (``write_cli_inputs``), in process on the card, the launch counts set to
+    0 just before and read just after (every kernel must launch), each file
+    == the same command with ``--device cpu``; then pairwise at 4096 x 512 x
+    512 with ``--sam --bam``, its wall split into parse, encode, score,
+    align, text, SAM and BAM, its score files == ``score_alignments``, the
+    native FASTA parser and SAM formatter == their Python versions; and
+    ``--panel`` at ``map_reads``' shape, its hits == ``map_reads``;
+14. device staging (``phase_staging``): 8 chunks of 16384 x 512 x 512 code
+    pairs through ``prefetch_to_device`` into the score kernel, == the
+    unstaged scores; one chunk's pageable copy, its copy into page-locked
+    memory and the page-locked copy, and the loop staged and unstaged, timed;
+15. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
     ``{"ok": true, "device": {...}}``.
 
 DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
@@ -145,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import re
 import statistics
@@ -1997,8 +2015,9 @@ def phase_banded_edges(rng, dev) -> dict:
 
 
 def edge_rng(seed: int, stream: int = 8):
-    """The generator of an edge phase, apart from the script's: stream 8
-    for ``phase_banded_edges``, 9 for ``phase_score_edges``."""
+    """The generator of a phase apart from the script's: stream 8 for
+    ``phase_banded_edges``, 9 ``phase_score_edges``, 10 ``phase_walk_vs_plain``,
+    11 ``phase_long_round``, 12 ``phase_cli``, 13 ``phase_staging``."""
     return np.random.default_rng([seed, stream])
 
 
@@ -2888,6 +2907,387 @@ def phase_long_round(rng, genome: np.ndarray) -> dict:
     return {"pairs": LONG_ROUND_PAIRS, "length": LONG_ROUND_LEN, "split": split}
 
 
+# ---------------------------------------------------------------------------
+# The command line (cli.py) and device staging (io/staging.py)
+# ---------------------------------------------------------------------------
+
+#: Every mode of ``python -m versalignlib_tpu_torch`` on small inputs
+#: (``write_cli_inputs``; arguments naming one of its files are joined to its
+#: directory). ``phase_cli`` runs each on the card and with ``--device cpu``
+#: and holds every file to the CPU run's bytes; ``tests/test_torch_cli.py``
+#: holds the CPU run to the JAX package's CLI.
+CLI_MODES = {
+    "pairwise_fastq_sam_bam": ["--reads", "reads.fq", "--refs", "refs.fa", "--sam", "--bam"],
+    "compat_sse": ["--reads", "reads.fa", "--refs", "refs.fa", "--reference-compat",
+                   "--tie", "sse"],
+    "affine_sam": ["--reads", "reads.fa", "--refs", "refs.fa", "--gap-open", "-4", "--sam"],
+    "blosum62": ["--reads", "prot_reads.fa", "--refs", "prot_refs.fa", "--matrix", "blosum62",
+                 "--gap-open", "-11", "--gap-read", "-1", "--gap-ref", "-1", "--sam"],
+    "panel_both_strands": ["--reads", "panel_reads.fa", "--panel", "panel.fa",
+                           "--both-strands", "--sam", "--bam"],
+    "panel_paired": ["--reads", "panel_reads.fa", "--reads2", "mates.fq", "--panel",
+                     "panel.fa", "--sam", "--bam"],
+    "panel_stats": ["--reads", "panel_reads.fa", "--panel", "panel.fa", "--stats",
+                    "--stats-samples", "32"],
+    "reference": ["--reads", "genome_reads.fa", "--reference", "genome.fa", "--sam", "--bam"],
+    "reference_long": ["--reads", "long_reads.fa", "--reference", "long_genome.fa", "--long",
+                       "--sam", "--bam"],
+    "band": ["--reads", "band_reads.fa", "--refs", "band_refs.fa", "--band", "32", "--sam"],
+    "band_affine": ["--reads", "band_reads.fa", "--refs", "band_refs.fa", "--band", "32",
+                    "--gap-open", "-4", "--gap-read", "-1", "--gap-ref", "-1"],
+    "pssm": ["--pssm-from", "motifs.fa", "--panel", "pool.fa", "--top", "5", "--stats",
+             "--stats-samples", "32"],
+    "translated": ["--translated", "--reads", "tr_reads.fa", "--panel", "tr_panel.fa"],
+    "selftest_oracle": ["--selftest", "--backend", "oracle", "--sam"],
+}
+#: The full-width CLI runs: pairwise at the main path's shape (CLI_PAIRS
+#: reads of LENGTH against as many refs) and ``--panel`` at ``map_reads``'
+#: (SEARCH_READS reads of READ_LEN against SEARCH_PANEL entries of
+#: PANEL_LEN). STAGED_CHUNKS chunks of SCORE_PAIRS pairs of LENGTH go
+#: through ``prefetch_to_device``.
+CLI_PAIRS = 4096
+STAGED_CHUNKS = 8
+_CODON = {"M": "ATG", "K": "AAA", "V": "GTT", "L": "CTG", "A": "GCT", "G": "GGC",
+          "S": "TCT", "E": "GAA", "R": "CGT", "W": "TGG", "F": "TTT", "Y": "TAT",
+          "P": "CCG", "T": "ACC", "D": "GAT", "N": "AAC", "Q": "CAG", "H": "CAT",
+          "I": "ATT", "C": "TGC"}
+
+
+def write_cli_inputs(d, rng) -> None:
+    """Seeded FASTA/FASTQ inputs for every mode of CLI_MODES in directory
+    ``d``: pairs with indels, an N and an unrelated read (FASTA and FASTQ);
+    protein pairs; a panel with reads on both strands and mates, one
+    unrelated; two contigs with reads; a 3 kbp genome with three long reads
+    and a junk read; long pairs; aligned motif instances and a pool that
+    holds the motif; reverse-translated peptides."""
+    from versalignlib_tpu_torch.alphabet import reverse_complement
+    from versalignlib_tpu_torch.io.fasta import write_fasta
+    from versalignlib_tpu_torch.io.fastq import write_fastq
+
+    dna, protein = np.array(list("ACGT")), np.array(list("ARNDCQEGHILKMFPSTWYV"))
+
+    def seq(n, alphabet=dna):
+        return "".join(rng.choice(alphabet, size=int(n)))
+
+    def mutate(s, rate=0.05):
+        out = []
+        for c in s:
+            r = rng.random()
+            if r < rate / 3:
+                continue
+            out.append(str(rng.choice(dna)) if r < rate else c)
+            if r < 2 * rate / 3:
+                out.append(c)
+        return "".join(out)
+
+    def quals(seqs):
+        return ["".join(chr(33 + int(q)) for q in rng.integers(0, 41, size=len(s)))
+                for s in seqs]
+
+    refs = [seq(rng.integers(40, 90)) for _ in range(12)]
+    reads = [mutate(r[int(rng.integers(0, 10)):][:int(rng.integers(20, 50))]) for r in refs]
+    reads[3] = "N" + reads[3]
+    reads[5] = seq(30)
+    write_fasta(d / "reads.fa", reads)
+    write_fasta(d / "refs.fa", refs, names=[f"ref{i} desc" for i in range(12)])
+    write_fastq(d / "reads.fq", reads, names=[f"r{i}" for i in range(12)],
+                qualities=quals(reads))
+    prot = [seq(rng.integers(20, 40), protein) for _ in range(6)]
+    write_fasta(d / "prot_reads.fa", ["".join(c if rng.random() > 0.15 else str(rng.choice(
+        protein)) for c in p[2:30]) for p in prot])
+    write_fasta(d / "prot_refs.fa", prot)
+    panel = [seq(80) for _ in range(6)]
+    preads, mates = [], []
+    for i in range(10):
+        j, lo = int(rng.integers(0, 6)), int(rng.integers(0, 30))
+        r = mutate(panel[j][lo:lo + 30])
+        preads.append(reverse_complement(r) if i % 2 else r)
+        mates.append(reverse_complement(panel[j][lo + 40:lo + 70]) if i != 4 else seq(30))
+    write_fasta(d / "panel.fa", panel, names=[f"p{i}" for i in range(6)])
+    write_fasta(d / "panel_reads.fa", preads)
+    write_fastq(d / "mates.fq", mates, qualities=quals(mates))
+    contigs = [seq(700), seq(500)]
+    greads = []
+    for i in range(8):
+        c = contigs[i % 2]
+        lo = int(rng.integers(0, len(c) - 60))
+        r = mutate(c[lo:lo + 50])
+        greads.append(reverse_complement(r) if i % 3 == 0 else r)
+    write_fasta(d / "genome.fa", contigs, names=["chrA", "chrB"])
+    write_fasta(d / "genome_reads.fa", greads)
+    genome = seq(3000)
+    lreads = []
+    for i in range(3):
+        lo = int(rng.integers(0, 2000))
+        r = mutate(genome[lo:lo + 600], 0.01)
+        lreads.append(reverse_complement(r) if i == 1 else r)
+    write_fasta(d / "long_genome.fa", [genome], names=["chrL"])
+    write_fasta(d / "long_reads.fa", lreads + [seq(400)])
+    brefs = [seq(rng.integers(150, 200)) for _ in range(4)]
+    write_fasta(d / "band_reads.fa", [mutate(r, 0.03) for r in brefs])
+    write_fasta(d / "band_refs.fa", brefs)
+    motif = seq(12)
+    write_fasta(d / "motifs.fa", ["".join(c if rng.random() > 0.1 else str(rng.choice(dna))
+                                          for c in motif) for _ in range(6)])
+    pool = [seq(60) for _ in range(8)]
+    pool[2] = pool[2][:20] + motif + pool[2][32:]
+    write_fasta(d / "pool.fa", pool)
+    peptides = [seq(30, protein) for _ in range(4)]
+    coding = ["".join(_CODON[a] for a in p[3:20]) for p in peptides]
+    coding[1] = reverse_complement(coding[1])
+    write_fasta(d / "tr_panel.fa", peptides)
+    write_fasta(d / "tr_reads.fa", coding)
+
+
+def cli_args(mode_args: list[str], d) -> list[str]:
+    """A mode's arguments with its input files joined to directory ``d``."""
+    return [str(d / a) if (d / a).is_file() else a for a in mode_args]
+
+
+def run_cli(args: list[str]) -> str:
+    """``cli.main(args)`` in this process; its standard output. A non-zero
+    return raises."""
+    from versalignlib_tpu_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(args)} returned {rc}: {out.getvalue()}")
+    return out.getvalue()
+
+
+def same_files(label: str, got_dir, want_dir) -> list[str]:
+    """Names of the files in ``want_dir``; raises unless ``got_dir`` holds
+    the same names, each with the same bytes."""
+    want = sorted(p.name for p in want_dir.iterdir())
+    got = sorted(p.name for p in got_dir.iterdir())
+    if got != want or not want:
+        raise AssertionError(f"cli {label}: files {got} on the card, {want} on the CPU")
+    for name in want:
+        if (got_dir / name).read_bytes() != (want_dir / name).read_bytes():
+            raise AssertionError(f"cli {label}: {name} differs from the CPU run's bytes")
+    return want
+
+
+def _codes_text(codes: np.ndarray) -> list[str]:
+    from versalignlib_tpu_torch.alphabet import decode
+
+    return [decode(c) for c in codes]
+
+
+def make_cli_pairs(rng) -> tuple[np.ndarray, np.ndarray]:
+    """CLI_PAIRS random A/C/G/T refs of LENGTH bp and reads copied from them
+    with 3% substitutions, one deletion and one insertion, 1% N, all of
+    LENGTH bp (so that every file holds real alignments)."""
+    refs = rng.integers(1, 5, size=(CLI_PAIRS, LENGTH)).astype(np.uint8)
+    reads = _substitute(rng, refs, 0.03, 4)
+    cut = rng.integers(0, LENGTH, size=(CLI_PAIRS, 2))
+    for i in range(CLI_PAIRS):
+        row = np.delete(reads[i], cut[i, 0])
+        reads[i] = np.insert(row, min(cut[i, 1], LENGTH - 1), rng.integers(1, 5))
+    reads = np.where(rng.random(reads.shape) < 0.01, np.uint8(5), reads).astype(np.uint8)
+    return reads, refs
+
+
+def phase_cli(rng) -> dict:
+    """``python -m versalignlib_tpu_torch`` in process: every mode of
+    CLI_MODES and ``--selftest --bench`` on the card, launch counts set to 0
+    just before and read just after (every kernel, B1-B10, must launch),
+    each file == the same command with ``--device cpu``; then pairwise at
+    full width (CLI_PAIRS x LENGTH x LENGTH, ``--sam --bam``), its wall
+    split by the host clock into parse, encode, score, align, text, SAM and
+    BAM, its score files == ``AlignmentEngine.score_alignments`` on the same
+    codes, ``parse_fasta_codes`` == ``parse_fasta`` + ``pad_and_encode``,
+    ``write_sam_batch`` (native) == ``write_sam`` (Python) on the card's raw
+    batch; and ``--panel`` at ``map_reads``' shape, its hits == ``map_reads``
+    on the same codes."""
+    import pathlib
+    import tempfile
+
+    from versalignlib_tpu_torch import AlignmentEngine, cli, dispatch, map_reads, native
+    from versalignlib_tpu_torch.alphabet import pad_and_encode
+    from versalignlib_tpu_torch.io import bam, fastq, sam
+    from versalignlib_tpu_torch.io.fasta import parse_fasta, write_fasta
+    from versalignlib_tpu_torch.ops.cuda_backend import CudaBackend
+    from versalignlib_tpu_torch.types import Algorithm
+
+    if not native.available():
+        raise AssertionError("the native library does not build or load on this host")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        d = root / "in"
+        d.mkdir()
+        write_cli_inputs(d, rng)
+        kernels = _all_kernels()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        for mode, args in CLI_MODES.items():
+            run_cli(cli_args(args, d) + ["--outdir", str(root / "card" / mode)])
+        bench = run_cli(["--selftest", "--bench", "--outdir", str(root / "card" / "selftest")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels.items()}
+        log(f"[cli] {len(CLI_MODES) + 1} modes on the card: launches {launches} ({wall:.2f} s)")
+        missing = [k for k, n in launches.items() if n < 1]
+        if missing:
+            raise AssertionError(f"the CLI's modes never launched {missing}")
+        t0 = time.perf_counter()
+        for mode, args in CLI_MODES.items():
+            run_cli(cli_args(args, d) + ["--outdir", str(root / "cpu" / mode), "--device", "cpu"])
+        run_cli(["--selftest", "--outdir", str(root / "cpu" / "selftest"), "--device", "cpu"])
+        files = sum(len(same_files(mode, root / "card" / mode, root / "cpu" / mode))
+                    for mode in [*CLI_MODES, "selftest"])
+        log(f"[cli] every mode's {files} files == the --device cpu run's bytes "
+            f"({time.perf_counter() - t0:.2f} s); bench table on the card:\n{bench.strip()}")
+        out["modes"] = {"launches": launches, "wall_s": wall, "files": files}
+
+        reads, refs = make_cli_pairs(rng)
+        write_fasta(d / "big_reads.fa", _codes_text(reads))
+        write_fasta(d / "big_refs.fa", _codes_text(refs))
+        targets = {"parse": (fastq, "parse_records"), "encode": (dispatch, "pad_and_encode"),
+                   "score": (CudaBackend, "score_alignments"),
+                   "align": (CudaBackend, "compute_alignments"),
+                   "text": (cli, "_write_scores"), "text_aln": (cli, "_write_alignments"),
+                   "sam": (sam, "write_sam"), "bam": (cli, "_maybe_bam")}
+        args = ["--reads", str(d / "big_reads.fa"), "--refs", str(d / "big_refs.fa"),
+                "--sam", "--bam", "--outdir", str(root / "big")]
+        acc = {key: [] for key in targets}
+        with contextlib.ExitStack() as timers:
+            for key, (owner, attr) in targets.items():
+                timers.enter_context(_host_timed(owner, attr, acc[key]))
+            t0 = time.perf_counter()
+            run_cli(args)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        split = {k: sum(v) for k, v in acc.items()}
+        split["text"] += split.pop("text_aln")
+        split["rest"] = wall - sum(split.values())
+        log(f"[cli] pairwise {CLI_PAIRS} x {LENGTH} x {LENGTH} --sam --bam on the card: wall "
+            f"{wall:.3f} ms = " + " + ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        out["pairwise"] = {"wall_ms": wall, "split_ms": split,
+                           "shape": [CLI_PAIRS, LENGTH, LENGTH]}
+        codes, lengths = native.parse_fasta_codes(d / "big_reads.fa")
+        if not (np.array_equal(codes, pad_and_encode(parse_fasta(d / "big_reads.fa")))
+                and np.array_equal(codes, reads) and (lengths == LENGTH).all()):
+            raise AssertionError("parse_fasta_codes differs from parse_fasta + pad_and_encode")
+        engine = AlignmentEngine()
+        for alg in Algorithm:
+            algo = alg.name.lower()
+            text = (root / "big" / f"scores_{algo}.txt").read_text().splitlines()
+            if not np.array_equal(np.array(text[2::3], dtype=np.int32),
+                                  engine.score_alignments(alg, reads, refs)):
+                raise AssertionError(f"cli scores_{algo}.txt differs from score_alignments")
+            sam_text = (root / "big" / f"alignments_{algo}.sam").read_text()
+            if bam.read_bam(root / "big" / f"alignments_{algo}.bam") != sam_text:
+                raise AssertionError(f"cli alignments_{algo}.bam does not read back as its SAM")
+        seqs, ref_seqs = _codes_text(reads), _codes_text(refs)
+        batch = engine.compute_alignments(Algorithm.SMITH_WATERMAN, reads, refs, raw=True)
+        strands = (np.arange(CLI_PAIRS) % 2).tolist()
+        t0 = time.perf_counter()
+        native_buf = io.StringIO()
+        sam.write_sam_batch(native_buf, batch, seqs, ref_seqs, strands=strands)
+        t_native = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        python_buf = io.StringIO()
+        sam.write_sam(python_buf, list(batch), seqs, ref_seqs, strands=strands)
+        t_python = 1e3 * (time.perf_counter() - t0)
+        if native_buf.getvalue() != python_buf.getvalue():
+            raise AssertionError("write_sam_batch (native) differs from write_sam (Python)")
+        log(f"[cli] parse_fasta_codes == parse_fasta + pad_and_encode on {CLI_PAIRS} reads; "
+            f"score files == score_alignments; BAM reads back as SAM; write_sam_batch "
+            f"(native, {t_native:.3f} ms) == write_sam (Python, {t_python:.3f} ms) on "
+            f"{CLI_PAIRS} records")
+        out["sam_ms"] = {"native": t_native, "python": t_python}
+
+        panel_reads, panel, _, _ = make_map_reads(rng)
+        write_fasta(d / "map_reads.fa", _codes_text(panel_reads))
+        write_fasta(d / "map_panel.fa", _codes_text(panel))
+        args = ["--reads", str(d / "map_reads.fa"), "--panel", str(d / "map_panel.fa"),
+                "--sam", "--outdir", str(root / "panel")]
+        t0 = time.perf_counter()
+        run_cli(args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        for alg in Algorithm:
+            rows = (root / "panel" / f"hits_{alg.name.lower()}.tsv").read_text().splitlines()
+            hits = map_reads(panel_reads, panel, algorithm=alg, align=False, both_strands=False)
+            got = np.array([r.split("\t")[2:5:2] for r in rows[1:]], dtype=np.int64)
+            if not (np.array_equal(got[:, 0], hits.index)
+                    and np.array_equal(got[:, 1], hits.score)):
+                raise AssertionError(f"cli --panel hits_{alg.name.lower()}.tsv differ from "
+                                     "map_reads")
+        log(f"[cli] --panel {SEARCH_READS} x {READ_LEN} vs {SEARCH_PANEL} x {PANEL_LEN} --sam "
+            f"on the card: wall {wall:.3f} ms; hits == map_reads")
+        out["panel"] = {"wall_ms": wall, "shape": [SEARCH_READS, READ_LEN, SEARCH_PANEL,
+                                                   PANEL_LEN]}
+    return out
+
+
+def phase_staging(rng, dev) -> dict:
+    """``prefetch_to_device`` feeding ``cuda_score.score_batch_device``:
+    STAGED_CHUNKS chunks of SCORE_PAIRS x LENGTH x LENGTH code pairs, the
+    staged scores == the unstaged ones in every chunk; times of one chunk's
+    pageable ``.to()`` copy (CUDA events), of its staging (the copy into
+    page-locked memory by the host clock, the page-locked copy by CUDA
+    events), and of the whole loop staged and unstaged (host clock, in
+    turns: unstaged, staged, staged, unstaged, REPS rounds)."""
+    from versalignlib_tpu_torch.io.staging import prefetch_to_device
+    from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
+    from versalignlib_tpu_torch.types import Algorithm
+
+    params = _param_sets()["dna_default"]
+    alg = Algorithm.SMITH_WATERMAN
+    chunks = [(k, random_codes(rng, SCORE_PAIRS, LENGTH), random_codes(rng, SCORE_PAIRS, LENGTH))
+              for k in range(STAGED_CHUNKS)]
+
+    def unstaged():
+        return [score_batch_device(torch.from_numpy(r).to(dev), torch.from_numpy(f).to(dev),
+                                   params, alg) for _, r, f in chunks]
+
+    def staged():
+        out = []
+        for k, r, f in prefetch_to_device(iter(chunks), depth=2, device=dev):
+            if not (r.is_cuda and f.is_cuda) or k != len(out):
+                raise AssertionError("prefetch_to_device broke the order or missed the card")
+            out.append(score_batch_device(r, f, params, alg))
+        return out
+
+    want = [s.cpu() for s in unstaged()]
+    got = [s.cpu() for s in staged()]
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"staged chunk {k}: scores differ from the unstaged ones")
+    _, r, f = chunks[0]
+    pageable = time_cuda(lambda: (torch.from_numpy(r).to(dev), torch.from_numpy(f).to(dev)))
+    pin = time_host(lambda: (torch.from_numpy(r).pin_memory(), torch.from_numpy(f).pin_memory()))
+    pr, pf = torch.from_numpy(r).pin_memory(), torch.from_numpy(f).pin_memory()
+    pinned = time_cuda(lambda: (pr.to(dev, non_blocking=True), pf.to(dev, non_blocking=True)))
+    loops = {"unstaged": [], "staged": []}
+    for _ in range(REPS):
+        for name in ("unstaged", "staged", "staged", "unstaged"):
+            fn = unstaged if name == "unstaged" else staged
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            loops[name].append(1e3 * (time.perf_counter() - t0))
+    loop = {k: {"median": statistics.median(v), "min": min(v), "max": max(v), "k": len(v)}
+            for k, v in loops.items()}
+    mb = 2 * r.nbytes / 1e6
+    out = {"chunk_mb": mb, "pageable_ms": pageable, "pin_ms": pin, "pinned_ms": pinned,
+           "loop_ms": loop}
+    log(f"[staging] {STAGED_CHUNKS} chunks of {SCORE_PAIRS} x {LENGTH} x {LENGTH}: staged "
+        f"scores == unstaged in every chunk; one chunk's {mb:.1f} MB of codes: pageable .to() "
+        f"{pageable['median']:.3f} ms ({mb / pageable['median']:.1f} GB/s), into page-locked "
+        f"memory {pin['median']:.3f} ms (host), page-locked .to() {pinned['median']:.3f} ms "
+        f"({mb / pinned['median']:.1f} GB/s); the {STAGED_CHUNKS}-chunk score loop "
+        f"unstaged {loop['unstaged']['median']:.3f} ms, staged {loop['staged']['median']:.3f} "
+        "ms (medians): " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2989,7 +3389,13 @@ def main() -> int:
     splits["banded:dna_default"].update(map_long_reads=longreads["split"],
                                         long_round=long_round)
     kernels += phase_walk_times(dev, pairs, walk_errs, walk_plain, launches, splits)
-    log(f"[phase] walk times: {time.perf_counter() - t0:.1f} s; whole script "
+    log(f"[phase] walk times: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_cli(edge_rng(args.seed, 12))
+    log(f"[phase] cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_staging(edge_rng(args.seed, 13), dev)
+    log(f"[phase] staging: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

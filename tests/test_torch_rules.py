@@ -56,6 +56,10 @@ def test_port_imports_with_jax_blocked():
         "from versalignlib_tpu_torch import native\n"
         "from versalignlib_tpu_torch.ops import banded, cuda_banded, plain_banded\n"
         "from versalignlib_tpu_torch import longread, models, seed\n"
+        "from versalignlib_tpu_torch import cli, io\n"
+        "from versalignlib_tpu_torch.io import bam, fasta, fastq, sam, staging\n"
+        "from versalignlib_tpu_torch.utils import profiling\n"
+        "import versalignlib_tpu_torch.__main__\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -157,7 +161,7 @@ def test_unported_modes_raise():
 def test_registry():
     from versalignlib_tpu_torch import dispatch
 
-    assert dispatch.available_backends("cpu") == ["cuda"]
+    assert dispatch.available_backends("cpu") == ["oracle", "cuda"]
     assert dispatch.get_backend("auto", "cpu").name == "cuda"
     with pytest.raises(KeyError):
         dispatch.get_backend("pallas", "cpu")

@@ -87,5 +87,5 @@ def test_exports_and_align_mode_match_jax():
         assert name in port.__all__ and hasattr(port, name), name
     assert [(m.name, m.value) for m in AlignMode] == \
         [(m.name, m.value) for m in JaxAlignMode]
-    assert port.available_backends("cpu") == ["cuda"]
+    assert port.available_backends("cpu") == ["oracle", "cuda"]
     assert port.get_backend("auto", "cpu").is_available()

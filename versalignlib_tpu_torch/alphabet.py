@@ -31,6 +31,11 @@ for _ch, _code in (("A", 1), ("T", 2), ("C", 3), ("G", 4), ("N", 5)):
 _CODE_TO_CHAR = np.frombuffer(b"\0ATCGN", dtype=np.uint8).copy()
 
 
+def char_to_code_table() -> np.ndarray:
+    """The full 256-entry lookup table (read-only copy)."""
+    return _CHAR_TO_CODE.copy()
+
+
 def encode(seq: str | bytes) -> np.ndarray:
     """Encode one sequence to a uint8 code array."""
     if isinstance(seq, str):

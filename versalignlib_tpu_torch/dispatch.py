@@ -7,7 +7,8 @@ keyed by name, each implementing the two-method surface of the reference's
     score_alignments(algorithm, reads, refs)   -> (n,) int32 scores
     compute_alignments(algorithm, reads, refs) -> list[Alignment]
 
-The port registers one backend, ``"cuda"``, and ``"auto"`` resolves to it.
+The port registers two backends: ``"oracle"`` (the numpy oracles, on the
+host whatever the device) and ``"cuda"``, which ``"auto"`` resolves to.
 Entry points run on the card: the engine's default device is ``"cuda"``, and
 on a host without one it raises instead of quietly using the CPU. The plain
 PyTorch path runs only when the caller passes ``device="cpu"``.
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from versalignlib_tpu_torch.alphabet import pad_and_encode
+from versalignlib_tpu_torch.ops import oracle
 from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, AlignmentBatch, TieBreak
 
@@ -146,14 +148,39 @@ class AlignmentEngine:
         self, algorithm: Algorithm, reads, refs, raw: bool = False,
         gapped: bool = True,
     ) -> list[Alignment] | AlignmentBatch:
-        """``raw=True``: return the :class:`AlignmentBatch` column store
-        instead of per-pair ``Alignment`` objects. ``gapped=False`` (raw
-        only): CIGAR-only columns, no gapped strings."""
+        """``raw=True`` (the ``cuda`` backend only): return the
+        :class:`AlignmentBatch` column store instead of per-pair
+        ``Alignment`` objects. ``gapped=False`` (raw only): CIGAR-only
+        columns, no gapped strings."""
         reads_enc, refs_enc = self._prepare(reads, refs)
+        if self.backend.name != "cuda":
+            if raw:
+                raise ValueError("raw alignment batches require the cuda backend")
+            return self.backend.compute_alignments(
+                algorithm, reads_enc, refs_enc, self.params, self.tie)
         return self.backend.compute_alignments(
             algorithm, reads_enc, refs_enc, self.params, self.tie,
             device_walk=self.device_walk, raw=raw, gapped=gapped,
         )
+
+
+class OracleBackend:
+    """The numpy oracles (``ops/oracle.py``, ``ops/gotoh.py``), pair by pair on
+    the host: the semantic ground truth, available on every device."""
+
+    name = "oracle"
+
+    def is_available(self) -> bool:
+        return True
+
+    def score_alignments(self, algorithm, reads, refs, params):
+        return oracle.score_alignments(algorithm, reads, refs, params)
+
+    def compute_alignments(self, algorithm, reads, refs, params, tie):
+        return oracle.compute_alignments(algorithm, reads, refs, params, tie)
+
+
+register_backend("oracle", lambda device: OracleBackend(), priority=0)
 
 
 def _cuda_factory(device: torch.device) -> Backend:

@@ -18,9 +18,10 @@ class AlignmentModel:
     """Immutable model config.
 
     ``banded`` models score and align through the banded kernels
-    (``ops/banded.py``); dense models go through the backend registry (the
-    ``"cuda"`` backend). ``score`` and ``align`` run on ``device``: the card
-    by default, the plain PyTorch path with ``device="cpu"``.
+    (``ops/banded.py``); dense models go through the backend registry
+    (``"cuda"``, or ``"oracle"`` on the host). ``score`` and ``align`` run
+    on ``device``: the card by default, the plain PyTorch path with
+    ``device="cpu"``.
     """
 
     name: str
@@ -80,5 +81,13 @@ class AlignmentModel:
         from versalignlib_tpu_torch.dispatch import _resolve_device, get_backend
 
         be = get_backend(backend, _resolve_device(device))
+        if be.name == "cuda":
+            return be.compute_alignments(self.algorithm, reads_enc, refs_enc, self.params,
+                                         self.tie, device_walk=self.device_walk)
+        if self.device_walk is not None:
+            raise ValueError(
+                "device_walk is only supported by the banded path and the cuda "
+                f"backend; got backend={be.name!r}. Leave device_walk=None or "
+                "select backend='cuda'.")
         return be.compute_alignments(self.algorithm, reads_enc, refs_enc, self.params,
-                                     self.tie, device_walk=self.device_walk)
+                                     self.tie)

@@ -1,10 +1,12 @@
-"""Host traceback decoder (C++), built with g++ at first use and loaded with
-ctypes.
+"""Host traceback decoder, FASTA parser and SAM formatter (C++), built with
+g++ at first use and loaded with ctypes.
 
 The port's copy of the loader, ``decode_batch_native``,
-``decode_banded_native`` and ``replay_records_native`` of
-``versalignlib_tpu/native``. There is no Python fallback: a failed build
-raises, because the decoder is on the alignment path.
+``decode_banded_native``, ``replay_records_native``, ``parse_fasta_codes``
+and ``format_sam_native`` of ``versalignlib_tpu/native``. The decoder has no
+Python fallback: a failed build raises, because the decoder is on the
+alignment path. :func:`available` reports whether the library loads, for the
+callers that keep a Python path (``io/sam.py::write_sam_batch``).
 """
 
 from __future__ import annotations
@@ -77,8 +79,40 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out bufs
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int,      # cigar_cap, meta, threads
         ]
+        lib.val_fasta_scan.restype = ctypes.c_int
+        lib.val_fasta_scan.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.val_fasta_read.restype = ctypes.c_int
+        lib.val_fasta_read.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
+        lib.val_format_sam.restype = ctypes.c_int64
+        lib.val_format_sam.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # gapped, aln_cap
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,   # cigar, cap, meta
+            ctypes.c_char_p, ctypes.c_void_p,                 # seqs, offsets
+            ctypes.c_char_p, ctypes.c_void_p,                 # quals, offsets
+            ctypes.c_char_p, ctypes.c_void_p,                 # qnames, offsets
+            ctypes.c_char_p, ctypes.c_void_p,                 # rnames, offsets
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # flags x2, mapq
+            ctypes.c_int,                                     # b
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, caps, lens
+            ctypes.c_int,                                     # threads
+        ]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads here; never raises."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def decode_batch_native(
@@ -190,9 +224,9 @@ def replay_records_native(
     algorithm,
     read_texts: list[str] | None = None,
     ref_texts: list[str] | None = None,
-    n_threads: int | None = None,
     raw: bool = False,
     gapped: bool = True,
+    n_threads: int | None = None,
 ):
     """Replay the traceback walks' row records (``ops/walk.py``: one
     ``left_count*4 | exit_code`` int32 per read row) through the C++ walker,
@@ -312,3 +346,93 @@ def decode_banded_native(
     if not gapped:
         read_g = ref_g = None
     return _results(read_g, ref_g, cigar, meta, raw)
+
+
+def parse_fasta_codes(path) -> tuple[np.ndarray, np.ndarray]:
+    """Native fused FASTA parse + encode + pad: (codes (n, max_len) uint8,
+    lengths (n,) int64), equal to ``io.fasta.parse_fasta`` followed by
+    ``alphabet.pad_and_encode``. Raises ``OSError`` for a file it cannot
+    read."""
+    lib = _load()
+    n = ctypes.c_int64()
+    mx = ctypes.c_int64()
+    path_b = str(path).encode()
+    if lib.val_fasta_scan(path_b, ctypes.byref(n), ctypes.byref(mx)) != 0:
+        raise OSError(f"cannot read FASTA file: {path}")
+    codes = np.zeros((n.value, max(mx.value, 1)), dtype=np.uint8)
+    lengths = np.zeros(n.value, dtype=np.int64)
+    if n.value:
+        rc = lib.val_fasta_read(path_b, codes.ctypes.data_as(ctypes.c_void_p), n.value,
+                                codes.shape[1], lengths.ctypes.data_as(ctypes.c_void_p))
+        if rc != 0:
+            raise OSError(f"FASTA parse failed: {path}")
+    return codes, lengths
+
+
+def format_sam_native(
+    batch,                   # types.AlignmentBatch (column store)
+    seqs: list[str],         # oriented SEQ strings
+    qnames: list[str],
+    rnames: list[str],
+    flags_mapped: np.ndarray,
+    flags_unmapped: np.ndarray,
+    mapqs: np.ndarray,
+    quals: list[str] | None = None,
+    n_threads: int | None = None,
+) -> bytes:
+    """SAM record lines (each with its newline) of a whole
+    :class:`AlignmentBatch`, formatted in C++ on ``n_threads`` threads
+    (default ``min(8, os.cpu_count())``); the headers are the caller's.
+    The records are those of ``io/sam.py::sam_record`` (edge normalization,
+    NM/MD), whatever the thread count."""
+    lib = _load()
+    b = len(batch)
+    if b == 0:
+        return b""
+
+    def _concat(strings):
+        off = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in strings], out=off[1:])
+        return "".join(strings).encode("latin-1"), off
+
+    seq_b, seq_off = _concat(seqs)
+    qn_b, qn_off = _concat(qnames)
+    rn_b, rn_off = _concat(rnames)
+    ql_b = ql_off = None
+    if quals is not None and any(q is not None for q in quals):
+        if any(q is None for q in quals):
+            raise ValueError("mixed qual/None per batch is not supported "
+                             "by the native formatter")
+        ql_b, ql_off = _concat(quals)
+
+    meta = np.ascontiguousarray(batch.meta, dtype=np.int32)
+    read_g = np.ascontiguousarray(batch.read_gapped)
+    ref_g = np.ascontiguousarray(batch.ref_gapped)
+    cigar = np.ascontiguousarray(batch.cigar)
+    aln_cap = read_g.shape[1]
+    cigar_cap = cigar.shape[1]
+    fm = np.ascontiguousarray(flags_mapped, dtype=np.int32)
+    fu = np.ascontiguousarray(flags_unmapped, dtype=np.int32)
+    mq = np.ascontiguousarray(mapqs, dtype=np.int32)
+
+    # A bound on each record's bytes: names + seq + qual + soft-clipped
+    # CIGAR + MD (2 chars a column) + the fixed fields and tags.
+    per = (np.diff(qn_off) + np.diff(rn_off) + 2 * np.diff(seq_off)
+           + cigar_cap + 2 * meta[:, 5].astype(np.int64) + 128)
+    caps = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum(per, out=caps[1:])
+    out = np.zeros(int(caps[-1]), dtype=np.uint8)
+    lens = np.zeros(b, dtype=np.int64)
+    threads = n_threads or min(8, os.cpu_count() or 1)
+    total = lib.val_format_sam(
+        read_g.ctypes.data, ref_g.ctypes.data, aln_cap,
+        cigar.ctypes.data, cigar_cap, meta.ctypes.data,
+        seq_b, seq_off.ctypes.data,
+        ql_b, None if ql_off is None else ql_off.ctypes.data,
+        qn_b, qn_off.ctypes.data,
+        rn_b, rn_off.ctypes.data,
+        fm.ctypes.data, fu.ctypes.data, mq.ctypes.data,
+        b, out.ctypes.data, caps.ctypes.data, lens.ctypes.data, threads)
+    if total < 0:
+        raise RuntimeError("val_format_sam overflowed a record's bound")
+    return out[:total].tobytes()

@@ -1,6 +1,8 @@
-"""Affine-gap (Gotoh) host fill and traceback of one pair — the port's copy
-of the parts of ``versalignlib_tpu/ops/gotoh.py`` that the profile
-traceback (``ops/pssm.py::profile_align_oracle``) walks.
+"""Affine-gap (Gotoh) numpy oracle — the port's copy of
+``versalignlib_tpu/ops/gotoh.py``: the fill, the 4-bit pointers, the
+three-state traceback (which the profile traceback,
+``ops/pssm.py::profile_align_oracle``, also walks) and the per-pair and batch
+functions behind the ``"oracle"`` backend.
 
 A gap of length L in the read costs ``gap_open_read + L * score_gap_read``
 (and symmetrically for the ref):
@@ -18,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 
 from versalignlib_tpu_torch.alphabet import substitution_scores
-from versalignlib_tpu_torch.ops.oracle import _text_from_codes
+from versalignlib_tpu_torch.ops.oracle import _pair_planes, _text_from_codes, nw_end_cell
 from versalignlib_tpu_torch.params import AlignmentParameters
-from versalignlib_tpu_torch.types import Alignment, TieBreak, Trace, cigar_from_gapped
+from versalignlib_tpu_torch.types import (Algorithm, Alignment, TieBreak, Trace,
+                                          cigar_from_gapped)
 
 #: -inf stand-in safe against int32 adds
 NEG_INF = np.int32(-(2**30))
@@ -159,3 +162,57 @@ def _affine_traceback(read, ref, ptr, start_rp, start_fp, score, read_text=None,
                      ref_start=fp + 1, ref_end=int(start_fp) + 1,
                      buffer_start=aln_length - 1 - len(rg),
                      buffer_end=aln_length - 1)
+
+
+def sw_score_affine(read, ref, p: AlignmentParameters) -> int:
+    h, _, _ = _fill_affine(read, ref, p, local=True, col0_penalty=False)
+    return int(h.max())
+
+
+def nw_score_affine(read, ref, p: AlignmentParameters) -> int:
+    """Overlap score, the same free-end-gap bookkeeping as the linear NW."""
+    h, _, _ = _fill_affine(read, ref, p, local=False, col0_penalty=False)
+    last_col = h[1:, -1].max() if h.shape[0] > 1 else 0
+    return int(max(0, last_col, h[-1, :].max()))
+
+
+def sw_align_affine(read, ref, p: AlignmentParameters,
+                    tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+                    read_text=None, ref_text=None) -> Alignment:
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    h, e, f = _fill_affine(read, ref, p, local=True, col0_penalty=False)
+    sub, valid_comp = _pair_planes(read, ref, p)
+    ptr = _affine_pointers(h, e, f, sub, p, local=True, tie=tie, valid_comp=valid_comp)
+    inner = h[1:, 1:]
+    if inner.size == 0:
+        return _affine_traceback(read, ref, ptr, -1, -1, 0, read_text, ref_text)
+    bi, bj = divmod(int(np.argmax(inner)), inner.shape[1])
+    return _affine_traceback(read, ref, ptr, bi, bj, int(inner[bi, bj]),
+                             read_text, ref_text)
+
+
+def nw_align_affine(read, ref, p: AlignmentParameters,
+                    tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+                    read_text=None, ref_text=None) -> Alignment:
+    """Semi-global affine alignment with the reference's NW end-cell rule."""
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    h, e, f = _fill_affine(read, ref, p, local=False, col0_penalty=True)
+    sub, valid_comp = _pair_planes(read, ref, p)
+    ptr = _affine_pointers(h, e, f, sub, p, local=False, tie=tie, valid_comp=valid_comp)
+    rp, fp = nw_end_cell(h, read, ref, p, tie)
+    score = int(h[rp + 1, fp + 1]) if rp >= -1 and fp >= -1 else 0
+    return _affine_traceback(read, ref, ptr, rp, fp, score, read_text, ref_text,
+                             nw_boundary=True)
+
+
+def score_alignments_affine(algorithm, reads, refs, p):
+    fn = sw_score_affine if Algorithm(algorithm) == Algorithm.SMITH_WATERMAN else nw_score_affine
+    return np.array([fn(r, f, p) for r, f in zip(reads, refs)], dtype=np.int32)
+
+
+def compute_alignments_affine(algorithm, reads, refs, p,
+                              tie: TieBreak = TieBreak.DIAG_UP_LEFT):
+    fn = sw_align_affine if Algorithm(algorithm) == Algorithm.SMITH_WATERMAN else nw_align_affine
+    return [fn(r, f, p, tie) for r, f in zip(reads, refs)]

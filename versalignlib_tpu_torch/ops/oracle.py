@@ -1,8 +1,9 @@
-"""NumPy host fill and traceback of one pair — the port's copy of the parts
-of ``versalignlib_tpu/ops/oracle.py`` that the profile traceback
-(``ops/pssm.py::profile_align_oracle``) walks: the linear-gap H matrix, its
-pointers and the walk that emits gapped strings exactly like
-DefaultKernel.cpp:413-451.
+"""NumPy scalar oracle — the port's copy of ``versalignlib_tpu/ops/oracle.py``:
+the linear-gap H matrix, its pointers, the walk that emits gapped strings
+exactly like DefaultKernel.cpp:413-451, and the per-pair and batch score and
+align functions behind the ``"oracle"`` backend (``dispatch.py``). The
+profile traceback (``ops/pssm.py::profile_align_oracle``) walks the same
+fill.
 
 The row fill resolves the within-row left dependency with the prefix-max
 identity ``H[i,j] = gap_read*j + cummax(T - gap_read*iota)``, exact in
@@ -14,9 +15,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from versalignlib_tpu_torch.alphabet import substitution_scores
+from versalignlib_tpu_torch.alphabet import make_validity, substitution_scores
 from versalignlib_tpu_torch.params import AlignmentParameters
-from versalignlib_tpu_torch.types import Alignment, TieBreak, Trace, cigar_from_gapped
+from versalignlib_tpu_torch.types import (Algorithm, Alignment, TieBreak, Trace,
+                                          cigar_from_gapped)
 
 
 def _row_fill(t_row: np.ndarray, gap_read: int) -> np.ndarray:
@@ -146,3 +148,109 @@ def _traceback(read: np.ndarray, ref: np.ndarray, ptr: np.ndarray,
                      ref_start=fp + 1, ref_end=int(start_ref_pos) + 1,
                      buffer_start=aln_length - 1 - steps,
                      buffer_end=aln_length - 1)
+
+
+def sw_score(read: np.ndarray, ref: np.ndarray, p: AlignmentParameters) -> int:
+    """Smith-Waterman score: global max of the clamped matrix
+    (DefaultKernel.cpp:83-138)."""
+    return int(_fill_matrix(read, ref, p, local=True, col0_penalty=False).max())
+
+
+def nw_score(read: np.ndarray, ref: np.ndarray, p: AlignmentParameters) -> int:
+    """Semi-global ("NW") overlap score (DefaultKernel.cpp:140-202): the max
+    over the last column of every row and over the whole final row, never
+    negative."""
+    h = _fill_matrix(read, ref, p, local=False, col0_penalty=False)
+    last_col = h[1:, -1].max() if h.shape[0] > 1 else 0
+    return int(max(0, last_col, h[-1, :].max()))
+
+
+def _pair_planes(read, ref, p: AlignmentParameters):
+    """Substitution plane and the valid-pair mask of one pair."""
+    sub = substitution_scores(read[:, None], ref[None, :], p.score_match,
+                              p.score_mismatch, p.matrix)
+    vfn = make_validity(p.matrix)
+    return sub, vfn(read)[:, None] & vfn(ref)[None, :]
+
+
+def nw_end_cell(h: np.ndarray, read: np.ndarray, ref: np.ndarray, p: AlignmentParameters,
+                tie: TieBreak) -> tuple[int, int]:
+    """The NW traceback's start cell (DefaultKernel.cpp:285-388):
+    (max_read_pos, min(max_ref_pos, globalRowMaxIndex)). The Default kernel
+    counts N as valid (code != 0), SSE only nonzero-scoring codes; the row
+    argmax starts at the column-0 value with index 0 and only strictly
+    greater cells replace it."""
+    if TieBreak(tie) == TieBreak.DIAG_UP_LEFT:
+        read_valid, ref_valid = read != 0, ref != 0
+    else:
+        vfn = make_validity(p.matrix)
+        read_valid, ref_valid = vfn(read), vfn(ref)
+    inv_r = np.flatnonzero(~read_valid)
+    max_read_pos = int(inv_r[0]) - 1 if inv_r.size else read.size - 1
+    inv_f = np.flatnonzero(~ref_valid)
+    max_ref_pos = int(inv_f[0]) - 1 if inv_f.size else ref.size - 1
+    row_max = 0
+    if max_read_pos >= 0:
+        row = h[max_read_pos + 1]
+        inner = row[1:]
+        if inner.size and int(inner.max()) > int(row[0]):
+            row_max = int(np.argmax(inner))
+    return max_read_pos, min(max_ref_pos, row_max)
+
+
+def sw_align(read: np.ndarray, ref: np.ndarray, p: AlignmentParameters,
+             tie: TieBreak = TieBreak.DIAG_UP_LEFT, read_text: str | None = None,
+             ref_text: str | None = None) -> Alignment:
+    """SW full alignment (DefaultKernel.cpp:204-280, 391-456): the walk starts
+    at the row-major first maximum (``np.argmax`` of the clamped matrix is
+    the reference's strictly-greater scan from 0)."""
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    h = _fill_matrix(read, ref, p, local=True, col0_penalty=False)
+    sub, valid_comp = _pair_planes(read, ref, p)
+    ptr = _pointers(h, sub, valid_comp, p, local=True, tie=tie)
+    inner = h[1:, 1:]
+    if inner.size == 0:
+        return _traceback(read, ref, ptr, -1, -1, 0, read_text, ref_text)
+    best_read, best_ref = divmod(int(np.argmax(inner)), inner.shape[1])
+    return _traceback(read, ref, ptr, best_read, best_ref,
+                      int(inner[best_read, best_ref]), read_text, ref_text)
+
+
+def nw_align(read: np.ndarray, ref: np.ndarray, p: AlignmentParameters,
+             tie: TieBreak = TieBreak.DIAG_UP_LEFT, read_text: str | None = None,
+             ref_text: str | None = None) -> Alignment:
+    """NW (semi-global) full alignment (DefaultKernel.cpp:282-389, 458-525),
+    from :func:`nw_end_cell`."""
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    h = _fill_matrix(read, ref, p, local=False, col0_penalty=True)
+    sub, valid_comp = _pair_planes(read, ref, p)
+    ptr = _pointers(h, sub, valid_comp, p, local=False, tie=tie)
+    rp, fp = nw_end_cell(h, read, ref, p, tie)
+    score = int(h[rp + 1, fp + 1]) if rp >= -1 and fp >= -1 else 0
+    return _traceback(read, ref, ptr, rp, fp, score, read_text, ref_text)
+
+
+def score_alignments(algorithm: Algorithm, reads: np.ndarray, refs: np.ndarray,
+                     p: AlignmentParameters) -> np.ndarray:
+    """Batch scores of (n, L) uint8 code arrays; ``p.affine`` routes to the
+    Gotoh oracle (``ops/gotoh.py``)."""
+    if p.affine:
+        from versalignlib_tpu_torch.ops import gotoh
+
+        return gotoh.score_alignments_affine(algorithm, reads, refs, p)
+    fn = sw_score if Algorithm(algorithm) == Algorithm.SMITH_WATERMAN else nw_score
+    return np.array([fn(r, f, p) for r, f in zip(reads, refs)], dtype=np.int32)
+
+
+def compute_alignments(algorithm: Algorithm, reads: np.ndarray, refs: np.ndarray,
+                       p: AlignmentParameters,
+                       tie: TieBreak = TieBreak.DIAG_UP_LEFT) -> list[Alignment]:
+    """Batch full alignments; ``p.affine`` routes to the Gotoh oracle."""
+    if p.affine:
+        from versalignlib_tpu_torch.ops import gotoh
+
+        return gotoh.compute_alignments_affine(algorithm, reads, refs, p, tie)
+    fn = sw_align if Algorithm(algorithm) == Algorithm.SMITH_WATERMAN else nw_align
+    return [fn(r, f, p, tie) for r, f in zip(reads, refs)]
