@@ -149,7 +149,26 @@ Phases (any failure exits non-zero before a result is printed):
     pairs through ``prefetch_to_device`` into the score kernel, == the
     unstaged scores; one chunk's pageable copy, its copy into page-locked
     memory and the page-locked copy, and the loop staged and unstaged, timed;
-15. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+15. serving (``phase_serve``): ``AlignServer`` over ``BatchingAligner`` on
+    the card in process; bursts of 16 concurrent /v1/score, /v1/align and
+    CIGAR-only /v1/align requests of 256 pairs of 512 x 512 and one /v1/map
+    at ``map_reads``' shape, every reply == the engine's direct call on the
+    card, a sample == the ``oracle`` backend, the score, fill, walk and
+    one-vs-many kernels launched; walls, pairs/s, the card's kernel time and
+    /stats logged; then ``scripts/torch_serve_bench.py`` at its mix
+    (latency percentiles, throughput, the dispatcher's time, the share
+    ``_bucket`` pads);
+16. the bulk pipelines (``phase_bulk``): ``scripts/torch_bulk_map.py
+    --synthetic 65536 --sam`` against the ``map_reads`` panel and
+    ``scripts/torch_bulk_align.py`` (131072 x 512 staged and pageable, in
+    turns; 16384 with ``--mode align``), the launch counts read from each
+    script's own run, ``torch_bulk_map`` and a staged ``torch_bulk_align``
+    resumed after a dropped chunk with byte-identical files, and both
+    checked against the entry points;
+17. the examples (``phase_examples``): every ``examples/torch/*.py`` in a
+    subprocess on the card and with ``--device cpu``, equal output, the
+    kernels each example drives launched on the card and none on the CPU;
+18. one ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
     ``{"ok": true, "device": {...}}``.
 
 DNA inputs are random A/C/G/T with about 2% N, protein inputs the 20
@@ -164,6 +183,7 @@ import argparse
 import contextlib
 import io
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -1483,9 +1503,11 @@ class _LaunchTimer:
 
 
 @contextlib.contextmanager
-def _host_timed(module, name: str, acc: list):
-    """While active, ``module.name`` appends its synchronised host time in
-    ms to ``acc`` on each call."""
+def _host_timed(module, name: str, acc: list, sync: bool = True):
+    """While active, ``module.name`` appends its host time in ms to ``acc``
+    on each call, from whichever thread: synchronised with the card, or with
+    ``sync=False`` not (for functions that return host results, where a
+    synchronisation would add the wait to take the interpreter back)."""
     fn = getattr(module, name)
 
     def timed(*args, **kw):
@@ -1493,7 +1515,8 @@ def _host_timed(module, name: str, acc: list):
         try:
             return fn(*args, **kw)
         finally:
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             acc.append(1e3 * (time.perf_counter() - t0))
 
     setattr(module, name, timed)
@@ -2017,7 +2040,8 @@ def phase_banded_edges(rng, dev) -> dict:
 def edge_rng(seed: int, stream: int = 8):
     """The generator of a phase apart from the script's: stream 8 for
     ``phase_banded_edges``, 9 ``phase_score_edges``, 10 ``phase_walk_vs_plain``,
-    11 ``phase_long_round``, 12 ``phase_cli``, 13 ``phase_staging``."""
+    11 ``phase_long_round``, 12 ``phase_cli``, 13 ``phase_staging``, 14
+    ``phase_serve``, 15 ``phase_bulk``."""
     return np.random.default_rng([seed, stream])
 
 
@@ -3101,7 +3125,6 @@ def phase_cli(rng) -> dict:
     ``write_sam_batch`` (native) == ``write_sam`` (Python) on the card's raw
     batch; and ``--panel`` at ``map_reads``' shape, its hits == ``map_reads``
     on the same codes."""
-    import pathlib
     import tempfile
 
     from versalignlib_tpu_torch import AlignmentEngine, cli, dispatch, map_reads, native
@@ -3119,20 +3142,15 @@ def phase_cli(rng) -> dict:
         d = root / "in"
         d.mkdir()
         write_cli_inputs(d, rng)
-        kernels = _all_kernels()
-        for k in kernels.values():
-            k.launches = 0
+        kernels = _zero_launches()
         t0 = time.perf_counter()
         for mode, args in CLI_MODES.items():
             run_cli(cli_args(args, d) + ["--outdir", str(root / "card" / mode)])
         bench = run_cli(["--selftest", "--bench", "--outdir", str(root / "card" / "selftest")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: v.launches for k, v in kernels.items()}
+        launches = _require_launches("the CLI's modes", kernels, kernels)
         log(f"[cli] {len(CLI_MODES) + 1} modes on the card: launches {launches} ({wall:.2f} s)")
-        missing = [k for k, n in launches.items() if n < 1]
-        if missing:
-            raise AssertionError(f"the CLI's modes never launched {missing}")
         t0 = time.perf_counter()
         for mode, args in CLI_MODES.items():
             run_cli(cli_args(args, d) + ["--outdir", str(root / "cpu" / mode), "--device", "cpu"])
@@ -3288,6 +3306,512 @@ def phase_staging(rng, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving (serve.py), the bulk pipelines (scripts/torch_bulk_*.py) and the
+# examples (examples/torch/)
+# ---------------------------------------------------------------------------
+
+#: The serving phase's full-width bursts: SERVE_CLIENTS concurrent requests
+#: of SERVE_REQUEST_PAIRS pairs each of the CLI_PAIRS pairs of LENGTH x
+#: LENGTH (``make_cli_pairs``), then one /v1/map request at ``map_reads``'
+#: shape; ORACLE_CHECK pairs (reads) of each kind also go to a server on the
+#: ``oracle`` backend; SERVE_BENCH_S seconds of ``scripts/torch_serve_bench.py``.
+SERVE_CLIENTS, SERVE_REQUEST_PAIRS, ORACLE_CHECK, SERVE_BENCH_S = 16, 256, 16, 10
+#: The bulk phase: BULK_MAP_READS synthetic reads (``torch_bulk_map``) drawn
+#: from the ``map_reads`` panel, BULK_ALIGN_PAIRS pairs of LENGTH scored
+#: (``torch_bulk_align``) and BULK_ALIGN_TRACED of them aligned, in chunks of
+#: BULK_CHUNK.
+BULK_MAP_READS, BULK_ALIGN_PAIRS, BULK_ALIGN_TRACED, BULK_CHUNK = 65536, 131072, 16384, 16384
+ROOT = pathlib.Path(__file__).resolve().parent
+#: Runs one example with ``jax`` and the JAX package blocked: ``python -c
+#: EXAMPLE_RUNNER script [args...]`` from the root of the repository. Its
+#: last line on standard error is LAUNCHES and the launch counts of
+#: ``_all_kernels`` as JSON.
+LAUNCHES = "launches "
+EXAMPLE_RUNNER = ("import json, runpy, sys\n"
+                  "sys.modules['jax'] = None\n"
+                  "sys.modules['versalignlib_tpu'] = None\n"
+                  "sys.argv = sys.argv[1:]\n"
+                  "try:\n"
+                  "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+                  "finally:\n"
+                  "    from chip_smoke import LAUNCHES, _all_kernels\n"
+                  "    print(LAUNCHES + json.dumps({k: v.launches for k, v in "
+                  "_all_kernels().items()}), file=sys.stderr)\n")
+#: The kernels each example must launch on the card; with ``--device cpu``
+#: it launches none.
+EXAMPLE_KERNELS = {
+    "01_pairwise.py": ("score", "align", "walk"),
+    "02_panel_search.py": ("search", "align", "walk"),
+    "03_reference_mapping.py": ("search", "align", "walk"),
+    "04_banded_long_pairs.py": ("banded_align", "banded_walk"),
+    "06_serving.py": ("score", "align", "walk", "search"),
+    "07_protein_and_stats.py": ("score", "align", "walk"),
+    "08_pssm_motif_scan.py": ("search",),
+    "09_translated_search.py": ("search", "align_affine"),
+}
+
+
+def example_scripts() -> list:
+    """The port's examples, ``examples/torch/*.py``."""
+    return sorted((ROOT / "examples" / "torch").glob("*.py"))
+
+
+def run_example(script, device: str, timeout: float = 300) -> subprocess.CompletedProcess:
+    """``script --device device`` in a subprocess with ``jax`` and the JAX
+    package blocked; its completed process (stdout and stderr as text)."""
+    return subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(script), "--device",
+                           device], capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+
+
+def example_launches(done: subprocess.CompletedProcess) -> dict:
+    """The launch counts an example's run printed (``EXAMPLE_RUNNER``)."""
+    lines = [ln for ln in done.stderr.splitlines() if ln.startswith(LAUNCHES)]
+    if not lines:
+        raise AssertionError(f"no launch counts on standard error: {done.stderr[-2000:]}")
+    return json.loads(lines[-1][len(LAUNCHES):])
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _zero_launches() -> dict:
+    kernels = _all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
+
+
+def _require_launches(label: str, kernels: dict, names) -> dict:
+    launches = {k: v.launches for k, v in kernels.items()}
+    missing = [k for k in names if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}: {launches}")
+    return launches
+
+
+def _post(addr, path: str, body: dict):
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{path} -> {resp.status}: {data[:300]!r}")
+    return json.loads(data)
+
+
+def _burst(addr, path: str, bodies: list) -> tuple[list, float]:
+    """All ``bodies`` posted at once, one thread each; (replies, wall ms
+    from the release of the threads to the last reply)."""
+    import threading
+
+    replies = [None] * len(bodies)
+    errors = []
+    go = threading.Barrier(len(bodies) + 1)
+
+    def client(i):
+        go.wait()
+        try:
+            replies[i] = _post(addr, path, bodies[i])
+        except Exception as exc:  # noqa: BLE001 (re-raised below)
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = 1e3 * (time.perf_counter() - t0)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{path} burst failed: {errors[:2]}")
+    return replies, wall
+
+
+@contextlib.contextmanager
+def _kernel_ms(*names):
+    """While active, every launch of the kernels ``names`` (of
+    ``_all_kernels``) is timed with CUDA events, from whichever thread;
+    yields a function that returns their sum in ms."""
+    kernels = _all_kernels()
+    with contextlib.ExitStack() as stack:
+        timers = [stack.enter_context(_LaunchTimer(kernels[n])) for n in names]
+        yield lambda: sum(t.ms() for t in timers)
+
+
+def phase_serve(rng, dev) -> dict:
+    """``AlignServer`` over a ``BatchingAligner`` (defaults: max_batch 4096,
+    max_wait_ms 5) on the card's engine, in process. After one request of
+    each kind off the clock, the launch counts are set to 0 and: bursts of
+    SERVE_CLIENTS concurrent /v1/score, /v1/align and /v1/align
+    ``fields: "cigar"`` requests of SERVE_REQUEST_PAIRS pairs of LENGTH x
+    LENGTH, every reply == the engine's direct call on the card
+    (``score_alignments``, ``compute_alignments(raw=True[, gapped=False])
+    .to_json_rows()``); one /v1/map of SEARCH_READS reads against the
+    ``map_reads`` panel with ``align``, == ``map_reads`` on the card; the
+    score, fill, walk and one-vs-many kernels must have launched. ORACLE_CHECK
+    pairs (reads) of each kind == a server on the ``oracle`` backend. Each
+    burst's wall and pairs/s beside the card's kernel time in it (CUDA
+    events) and the engine's direct call on the same pairs, the map
+    request's wall beside ``map_reads``' own, and /stats are logged. Then
+    ``scripts/torch_serve_bench.py --duration SERVE_BENCH_S`` in process at
+    its mix, with the card's kernel time and the host time of ``map_reads``
+    and ``pad_and_encode`` over the whole call."""
+    import tempfile
+
+    from versalignlib_tpu_torch import AlignmentEngine, alphabet, map_reads, search
+    from versalignlib_tpu_torch.serve import AlignServer, BatchingAligner, _hits_json
+    from versalignlib_tpu_torch.types import Algorithm
+
+    sw = Algorithm.SMITH_WATERMAN
+    reads, refs = make_cli_pairs(rng)
+    seqs, ref_seqs = _codes_text(reads), _codes_text(refs)
+    map_r, panel, _, _ = make_map_reads(rng)
+    map_seqs, panel_seqs = _codes_text(map_r), _codes_text(panel)
+    n = SERVE_CLIENTS * SERVE_REQUEST_PAIRS
+    engine = AlignmentEngine()
+    out: dict = {}
+
+    def bodies(extra=None):
+        return [{"reads": seqs[i * SERVE_REQUEST_PAIRS:(i + 1) * SERVE_REQUEST_PAIRS],
+                 "refs": ref_seqs[i * SERVE_REQUEST_PAIRS:(i + 1) * SERVE_REQUEST_PAIRS],
+                 "algorithm": "sw", **(extra or {})} for i in range(SERVE_CLIENTS)]
+
+    kinds = {"score": ("/v1/score", bodies()), "align": ("/v1/align", bodies()),
+             "align_cigar": ("/v1/align", bodies({"fields": "cigar"}))}
+    map_body = {"reads": map_seqs, "panel": panel_seqs, "algorithm": "sw",
+                "both_strands": True, "align": True}
+    with AlignServer(BatchingAligner(engine)) as server:
+        server.start()
+        addr = server.address
+        for path, b in kinds.values():
+            _post(addr, path, b[0])
+        _post(addr, "/v1/map", {**map_body, "reads": map_seqs[:8]})
+        torch.cuda.synchronize()
+        stats0 = server.aligner.stats()
+        kernels = _zero_launches()
+        replies, walls, card_ms = {}, {}, {}
+        for kind, (path, b) in kinds.items():
+            with _kernel_ms("score", "align", "walk") as ms:
+                replies[kind], walls[kind] = _burst(addr, path, b)
+                card_ms[kind] = ms()
+        with _kernel_ms("search", "align", "walk") as ms:
+            t0 = time.perf_counter()
+            map_reply = _post(addr, "/v1/map", map_body)["hits"]
+            walls["map"] = 1e3 * (time.perf_counter() - t0)
+            card_ms["map"] = ms()
+        torch.cuda.synchronize()
+        stats1 = server.aligner.stats()
+        launches = _require_launches("serving", kernels, ("score", "align", "walk", "search"))
+
+    direct = {"score": lambda: engine.score_alignments(sw, reads[:n], refs[:n]),
+              "align": lambda: engine.compute_alignments(sw, reads[:n], refs[:n], raw=True),
+              "align_cigar": lambda: engine.compute_alignments(sw, reads[:n], refs[:n],
+                                                               raw=True, gapped=False)}
+    direct_ms, results = {}, {}
+    for kind, fn in direct.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[kind] = fn()
+        torch.cuda.synchronize()
+        direct_ms[kind] = 1e3 * (time.perf_counter() - t0)
+    want_scores = results["score"].tolist()
+    want_rows = {k: results[k].to_json_rows() for k in ("align", "align_cigar")}
+    for kind, got in replies.items():
+        key = "scores" if kind == "score" else "alignments"
+        flat = [x for r in got for x in r[key]]
+        if flat != (want_scores if kind == "score" else want_rows[kind]):
+            raise AssertionError(f"served {kind} replies differ from the engine's direct call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = map_reads(map_r, panel, device=dev, align=True)
+    torch.cuda.synchronize()
+    direct_map_ms = 1e3 * (time.perf_counter() - t0)
+    if map_reply != _hits_json(hits, True):
+        raise AssertionError("the served /v1/map reply differs from map_reads on the card")
+
+    # One request of each kind, ORACLE_CHECK pairs, on the oracle backend.
+    small = {kind: (path, {**b[0], "reads": b[0]["reads"][:ORACLE_CHECK],
+                           "refs": b[0]["refs"][:ORACLE_CHECK]})
+             for kind, (path, b) in kinds.items()}
+    small["map"] = ("/v1/map", {**map_body, "reads": map_seqs[:ORACLE_CHECK]})
+    answers = {}
+    for backend in ("cuda", "oracle"):
+        with AlignServer(BatchingAligner(AlignmentEngine(backend=backend))) as server:
+            server.start()
+            answers[backend] = {k: _post(server.address, *v) for k, v in small.items()}
+    if answers["cuda"] != answers["oracle"]:
+        bad = [k for k in small if answers["cuda"][k] != answers["oracle"][k]]
+        raise AssertionError(f"served {bad} on the card differ from the oracle backend")
+
+    stats = {k: stats1[k] - stats0[k] for k in ("requests", "batches", "batched_pairs",
+                                                "queue_wait_sum_s", "device_sum_s")}
+    stats["max_batch_pairs"] = stats1["max_batch_pairs"]
+    stats["mean_queue_wait_ms"] = 1e3 * stats["queue_wait_sum_s"] / stats["requests"]
+    bursts = {k: {"wall_ms": walls[k], "pairs_per_s": 1e3 * n / walls[k],
+                  "card_kernel_ms": card_ms[k], "direct_engine_ms": direct_ms[k]}
+              for k in kinds}
+    out.update(bursts=bursts, launches=launches, stats=stats,
+               map={"wall_ms": walls["map"], "card_kernel_ms": card_ms["map"],
+                    "direct_map_reads_ms": direct_map_ms,
+                    "reads_per_s": 1e3 * SEARCH_READS / walls["map"]})
+    log(f"[serve] bursts of {SERVE_CLIENTS} x {SERVE_REQUEST_PAIRS} pairs of {LENGTH} x "
+        f"{LENGTH}: " + "; ".join(
+            f"{k} {v['wall_ms']:.3f} ms, {v['pairs_per_s']:.1f} pairs/s (card kernels "
+            f"{v['card_kernel_ms']:.3f} ms; the engine's direct call on the {n} pairs "
+            f"{v['direct_engine_ms']:.3f} ms)" for k, v in bursts.items())
+        + f"; /v1/map {SEARCH_READS} x {READ_LEN} vs {SEARCH_PANEL} x {PANEL_LEN} with align "
+        f"{walls['map']:.3f} ms (card kernels {card_ms['map']:.3f} ms; map_reads direct "
+        f"{direct_map_ms:.3f} ms); every reply == the engine's direct call on the card; "
+        f"{ORACLE_CHECK} of each kind == the oracle backend; launches {launches}; /stats over "
+        f"the bursts and the map request: {json.dumps(stats)}")
+
+    bench = load_script("torch_serve_bench")
+    host_ms = {"map_reads": [], "pad_and_encode": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "serve_bench.json"
+        with contextlib.redirect_stdout(io.StringIO()), \
+                _kernel_ms("score", "align", "walk", "search") as ms, \
+                _host_timed(search, "map_reads", host_ms["map_reads"], sync=False), \
+                _host_timed(alphabet, "pad_and_encode", host_ms["pad_and_encode"], sync=False):
+            t0 = time.perf_counter()
+            bench.main(["--duration", str(SERVE_BENCH_S), "--out", str(path)])
+            call_s = time.perf_counter() - t0
+            kernel_s = ms() / 1e3
+        result = json.loads(path.read_text())
+    if result["errors"]:
+        raise AssertionError(f"torch_serve_bench saw errors: {result.get('error_samples')}")
+    result["card_kernel_s"] = {"whole_call": kernel_s, "call_s": call_s,
+                               "share_of_the_window": kernel_s / result["duration_s"]}
+    result["host_s_whole_call"] = {k: {"calls": len(v), "s": sum(v) / 1e3}
+                                   for k, v in host_ms.items()}
+    out["bench"] = result
+    log(f"[serve] torch_serve_bench --duration {SERVE_BENCH_S}: " + json.dumps(
+        {k: result[k] for k in ("requests_per_s", "pairs_per_s", "latency", "batching",
+                                "dispatcher_s", "bucket_padding", "align_path_ab",
+                                "card_kernel_s", "host_s_whole_call")}))
+    return out
+
+
+def _drop_chunk(ckpt: pathlib.Path, chunk: int) -> None:
+    """Take ``chunk`` out of the journal ``ckpt/done.jsonl``, as a run killed
+    before it committed that chunk would have left it."""
+    journal = ckpt / "done.jsonl"
+    journal.write_text("".join(line + "\n" for line in journal.read_text().splitlines()
+                               if json.loads(line)["chunk"] != chunk))
+
+
+def phase_bulk(rng, dev) -> dict:
+    """The bulk pipelines in process on the card. The launch counts are set
+    to 0 just before each script's run and read just after it, before any
+    reference call. ``torch_bulk_map --synthetic BULK_MAP_READS --sam``
+    against the ``map_reads`` panel in chunks of BULK_CHUNK (the one-vs-many,
+    fill and walk kernels launched), then again after one chunk is dropped
+    from the journal (its rows overwritten; the same kernels launched):
+    ``hits.tsv``, ``table.npy`` and ``alignments.sam`` byte-identical, chunk
+    0's rows == ``map_reads`` on the card. ``torch_bulk_align --pairs
+    BULK_ALIGN_PAIRS --len LENGTH`` staged and with ``--no-prefetch`` (the
+    score kernel launched at least once a chunk): the score tables
+    identical, chunk 0 == ``score_alignments``; pairs/s and GCUPS both ways,
+    the time spent drawing the synthetic chunks timed apart; the first
+    staged run resumed after one chunk is dropped (its scores overwritten),
+    ``scores.npy`` byte-identical. ``--mode align`` on BULK_ALIGN_TRACED
+    pairs (the fill and walk kernels launched): the alignment file ==
+    ``compute_alignments(raw=True).write_to`` on the same codes."""
+    import tempfile
+
+    from versalignlib_tpu_torch import AlignmentEngine, map_reads
+    from versalignlib_tpu_torch.io.fasta import write_fasta
+    from versalignlib_tpu_torch.types import Algorithm
+
+    bulk_map, bulk_align = load_script("torch_bulk_map"), load_script("torch_bulk_align")
+    _, panel, _, _ = make_map_reads(rng)
+    chunks = -(-BULK_ALIGN_PAIRS // BULK_CHUNK)
+    out: dict = {}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_fasta(root / "panel.fa", _codes_text(panel))
+        ck = root / "map"
+        argv = ["--synthetic", str(BULK_MAP_READS), "--panel", str(root / "panel.fa"),
+                "--ckpt", str(ck), "--chunk", str(BULK_CHUNK), "--sam"]
+        with contextlib.redirect_stdout(io.StringIO()), \
+                _kernel_ms("search") as b4, _kernel_ms("align", "walk") as fill_walk:
+            kernels = _zero_launches()
+            t0 = time.perf_counter()
+            bulk_map.main(argv)
+            torch.cuda.synchronize()
+            map_wall = time.perf_counter() - t0
+            launches["bulk_map"] = _require_launches("torch_bulk_map --sam", kernels,
+                                                     ("search", "align", "walk"))
+            map_kernels = {"search_s": b4() / 1e3, "align_walk_s": fill_walk() / 1e3}
+        names = ("hits.tsv", "table.npy", "alignments.sam")
+        before = {name: (ck / name).read_bytes() for name in names}
+        np.load(ck / "table.npy", mmap_mode="r+")[BULK_CHUNK:2 * BULK_CHUNK] = -1
+        (ck / "sam_000001.part").write_text("")
+        _drop_chunk(ck, 1)
+        kernels = _zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            bulk_map.main(argv)
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        launches["bulk_map resume"] = _require_launches(
+            "torch_bulk_map's resume", kernels, ("search", "align", "walk"))
+        if {name: (ck / name).read_bytes() for name in names} != before:
+            raise AssertionError("torch_bulk_map: the resumed run's files differ")
+        reads0 = bulk_map.synthetic_chunk(0, 0, BULK_CHUNK, panel)
+        hits = map_reads(reads0, panel, device=dev, align=False)
+        rows = np.stack([hits.index, hits.score, hits.strand, hits.mapq], axis=1)
+        if not np.array_equal(np.load(ck / "table.npy")[:BULK_CHUNK], rows):
+            raise AssertionError("torch_bulk_map chunk 0 differs from map_reads on the card")
+        m = reads0.shape[1]
+        out["map"] = {"reads": BULK_MAP_READS, "read_len": m, "wall_s": map_wall,
+                      "reads_per_s": BULK_MAP_READS / map_wall,
+                      "resume_one_chunk_s": resume_wall, "card_kernels": map_kernels,
+                      "sam_bytes": len(before["alignments.sam"])}
+        log(f"[bulk] torch_bulk_map --synthetic {BULK_MAP_READS} (reads of {m} bp) vs "
+            f"{SEARCH_PANEL} x {PANEL_LEN}, both strands, --sam, chunk {BULK_CHUNK}: "
+            f"{map_wall:.3f} s, {BULK_MAP_READS / map_wall:.1f} reads/s (card: one-vs-many "
+            f"{map_kernels['search_s']:.3f} s, fill and walk {map_kernels['align_walk_s']:.3f} "
+            "s); one chunk dropped "
+            f"and resumed in {resume_wall:.3f} s: hits.tsv, table.npy, alignments.sam "
+            "byte-identical; chunk 0 == map_reads on the card")
+
+        def run_align(d, *extra, pairs=BULK_ALIGN_PAIRS, need=("score",), at_least=1):
+            """``torch_bulk_align --pairs pairs`` into ``d``; its wall s, the
+            synthetic draw's s, and its launch counts, each of ``need`` at
+            least ``at_least``."""
+            draw_ms: list[float] = []
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    _host_timed(bulk_align, "synthetic_chunk", draw_ms, sync=False):
+                kernels = _zero_launches()
+                t0 = time.perf_counter()
+                bulk_align.main(["--pairs", str(pairs), "--len", str(LENGTH), "--chunk",
+                                 str(BULK_CHUNK), "--ckpt", str(d), *extra])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = {k: v.launches for k, v in kernels.items()}
+            short = [k for k in need if counts[k] < at_least]
+            if short:
+                raise AssertionError(f"torch_bulk_align {' '.join(extra)} launched {short} "
+                                     f"fewer than {at_least} times: {counts}")
+            return wall, sum(draw_ms) / 1e3, counts
+
+        runs, tables = [], set()
+        cells = BULK_ALIGN_PAIRS * LENGTH * LENGTH
+        # In turns, so that the first (cold) run of each way shows.
+        for i, name in enumerate(("staged", "pageable", "pageable", "staged")):
+            d = root / f"{name}{i}"
+            wall, draw, counts = run_align(
+                d, *(["--no-prefetch"] if name == "pageable" else []), at_least=chunks)
+            launches[f"bulk_align {name}{i}"] = counts
+            runs.append({"run": name, "wall_s": wall, "pairs_per_s": BULK_ALIGN_PAIRS / wall,
+                         "gcups": cells / wall / 1e9, "draw_s": draw,
+                         "pairs_per_s_without_draw": BULK_ALIGN_PAIRS / (wall - draw)})
+            tables.add((d / "scores.npy").read_bytes())
+        if len(tables) != 1:
+            raise AssertionError("torch_bulk_align: staged and pageable score tables differ")
+        d = root / "staged0"
+        before = (d / "scores.npy").read_bytes()
+        np.load(d / "scores.npy", mmap_mode="r+")[BULK_CHUNK:2 * BULK_CHUNK] = -1
+        _drop_chunk(d, 1)
+        align_resume, _, launches["bulk_align resume"] = run_align(d)
+        if (d / "scores.npy").read_bytes() != before:
+            raise AssertionError("torch_bulk_align: the resumed run's scores.npy differs")
+        r0, f0 = bulk_align.synthetic_chunk(0, 0, BULK_CHUNK, LENGTH)
+        engine = AlignmentEngine()
+        if not np.array_equal(np.load(d / "scores.npy")[:BULK_CHUNK],
+                              engine.score_alignments(Algorithm.SMITH_WATERMAN, r0, f0)):
+            raise AssertionError("torch_bulk_align chunk 0 differs from score_alignments")
+        out["align_score"] = runs
+        out["align_score_resume_one_chunk_s"] = align_resume
+        log(f"[bulk] torch_bulk_align --pairs {BULK_ALIGN_PAIRS} --len {LENGTH} --chunk "
+            f"{BULK_CHUNK}, in turns: " + "; ".join(
+                f"{v['run']} {v['wall_s']:.3f} s, {v['pairs_per_s']:.1f} pairs/s, "
+                f"{v['gcups']:.3f} GCUPS (drawing the chunks {v['draw_s']:.3f} s; without it "
+                f"{v['pairs_per_s_without_draw']:.1f} pairs/s)" for v in runs)
+            + f"; score tables identical; one chunk dropped and resumed in {align_resume:.3f} "
+            "s, scores.npy byte-identical; chunk 0 == score_alignments")
+
+        d = root / "traced"
+        traced_wall, _, launches["bulk_align --mode align"] = run_align(
+            d, "--mode", "align", pairs=BULK_ALIGN_TRACED, need=("align", "walk"))
+        buf = io.StringIO()
+        engine.compute_alignments(Algorithm.SMITH_WATERMAN, r0, f0, raw=True).write_to(buf)
+        if (d / "alignments_000000.txt").read_text() != buf.getvalue():
+            raise AssertionError("torch_bulk_align --mode align differs from compute_alignments")
+        out["align_traced"] = {"pairs": BULK_ALIGN_TRACED, "wall_s": traced_wall,
+                               "pairs_per_s": BULK_ALIGN_TRACED / traced_wall}
+        log(f"[bulk] torch_bulk_align --mode align, {BULK_ALIGN_TRACED} pairs of {LENGTH}: "
+            f"{traced_wall:.3f} s, {BULK_ALIGN_TRACED / traced_wall:.1f} pairs/s; the "
+            "alignment file == compute_alignments(raw=True).write_to")
+    out["launches"] = launches
+    log(f"[bulk] launches in each script's own run: {json.dumps(launches)}")
+    return out
+
+
+def phase_examples() -> dict:
+    """Each ``examples/torch/*.py`` in a subprocess on the card and with
+    ``--device cpu``, all at once on 8 workers: every run exits 0, the two
+    standard outputs are equal and hold no ``MISS``; on the card each
+    example launched its EXAMPLE_KERNELS, with ``--device cpu`` no kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    scripts = example_scripts()
+    if [s.name for s in scripts] != sorted(EXAMPLE_KERNELS):
+        raise AssertionError(f"examples/torch holds {[s.name for s in scripts]}, not "
+                             f"{sorted(EXAMPLE_KERNELS)}")
+
+    def run(job):
+        script, device = job
+        t0 = time.perf_counter()
+        done = run_example(script, device)
+        return script.name, device, done, time.perf_counter() - t0
+
+    jobs = [(s, d) for s in scripts for d in ("cuda", "cpu")]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        runs = list(pool.map(run, jobs))
+    stdout, walls, launches = {}, {}, {}
+    for name, device, done, wall in runs:
+        if done.returncode != 0:
+            raise AssertionError(f"{name} --device {device} exited {done.returncode}: "
+                                 f"{done.stderr[-2000:]}")
+        stdout[name, device] = done.stdout
+        walls.setdefault(name, {})[device] = wall
+        counts = example_launches(done)
+        if device == "cpu" and any(counts.values()):
+            raise AssertionError(f"{name} --device cpu launched kernels: {counts}")
+        if device == "cuda":
+            missing = [k for k in EXAMPLE_KERNELS[name] if counts[k] < 1]
+            if missing:
+                raise AssertionError(f"{name} on the card never launched {missing}: {counts}")
+            launches[name] = {k: v for k, v in counts.items() if v}
+    for s in scripts:
+        card, cpu = stdout[s.name, "cuda"], stdout[s.name, "cpu"]
+        if not card.strip() or card != cpu or "MISS" in card:
+            raise AssertionError(f"{s.name}: the card's output differs from the CPU's or "
+                                 f"holds MISS:\n{card}\n---\n{cpu}")
+    log(f"[examples] {len(scripts)} examples on the card == --device cpu, no MISS; walls (s): "
+        + json.dumps(walls) + "; launches on the card: " + json.dumps(launches))
+    return {"walls": walls, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3395,7 +3919,16 @@ def main() -> int:
     log(f"[phase] cli: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_staging(edge_rng(args.seed, 13), dev)
-    log(f"[phase] staging: {time.perf_counter() - t0:.1f} s; whole script "
+    log(f"[phase] staging: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_serve(edge_rng(args.seed, 14), dev)
+    log(f"[phase] serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_bulk(edge_rng(args.seed, 15), dev)
+    log(f"[phase] bulk: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_examples()
+    log(f"[phase] examples: {time.perf_counter() - t0:.1f} s; whole script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,7 +22,8 @@ _FORBIDDEN = {"jax", "jaxlib", "versalignlib_tpu"}
 
 def _port_sources():
     files = sorted((ROOT / "versalignlib_tpu_torch").rglob("*.py"))
-    return files + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    return (files + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + sorted((ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def test_no_jax_imports_anywhere_in_the_port():
@@ -60,13 +61,43 @@ def test_port_imports_with_jax_blocked():
         "from versalignlib_tpu_torch.io import bam, fasta, fastq, sam, staging\n"
         "from versalignlib_tpu_torch.utils import profiling\n"
         "import versalignlib_tpu_torch.__main__\n"
+        "from versalignlib_tpu_torch import debug, serve\n"
+        "from versalignlib_tpu_torch.utils import checkpoint, timers\n"
         "import chip_smoke\n"
+        "for name in ('torch_serve_bench', 'torch_bulk_map', 'torch_bulk_align'):\n"
+        "    chip_smoke.load_script(name)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_cover_the_new_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {"versalignlib_tpu_torch/serve.py", "versalignlib_tpu_torch/debug.py",
+            "versalignlib_tpu_torch/utils/checkpoint.py",
+            "versalignlib_tpu_torch/utils/timers.py", "scripts/torch_serve_bench.py",
+            "scripts/torch_bulk_map.py", "scripts/torch_bulk_align.py"} <= names
+    assert len([n for n in names if n.startswith("examples/torch/")]) == 8
+
+
+def test_package_exports_pin_the_jax_packages():
+    """Every name the JAX package exports, in the same first two places (the
+    lazy serving exports), and the port's own additions."""
+    import versalignlib_tpu as jax_pkg
+
+    import versalignlib_tpu_torch as port
+
+    assert port.__all__[:2] == jax_pkg.__all__[:2] == ["BatchingAligner", "AlignServer"]
+    assert set(jax_pkg.__all__) <= set(port.__all__)
+    assert set(port.__all__) - set(jax_pkg.__all__) == {
+        "AlignmentBatch", "AlignMode", "params_from_reference", "calibrate_islands",
+        "ROBINSON_FREQS", "models", "banded_score_batch", "banded_align_batch"}
+    assert len(port.__all__) == len(set(port.__all__))
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
 
 
 def test_default_engine_needs_a_card(monkeypatch):

@@ -13,6 +13,7 @@ numpy and the standard library, never ``jax`` or ``versalignlib_tpu``.
     scores = engine.score_alignments(Algorithm.SMITH_WATERMAN, reads, refs)
     hits = map_reads(reads, panel)        # one-vs-many on the card
     alns = models.banded_needleman_wunsch(band=512).align(long_reads, long_refs)
+    server = AlignServer(BatchingAligner(engine))   # HTTP JSON serving
 """
 
 from versalignlib_tpu_torch import models
@@ -41,7 +42,20 @@ from versalignlib_tpu_torch.types import Algorithm, Alignment, AlignmentBatch, A
 
 __version__ = "0.1.0"
 
+
+def __getattr__(name):
+    # Lazy serving-layer exports: `import versalignlib_tpu_torch` loads no
+    # HTTP or threading machinery until a server is wanted.
+    if name in ("BatchingAligner", "AlignServer"):
+        from versalignlib_tpu_torch import serve
+
+        return getattr(serve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "BatchingAligner",
+    "AlignServer",
     "AlignmentEngine",
     "get_backend",
     "register_backend",
