@@ -23,7 +23,9 @@ Phases (any failure exits non-zero before a result is printed):
    resident per SM, shared memory, memory plan), and the one-vs-many
    kernel's at each search launch, with its memory plan, once the search
    data is made (``search_geometry``), and the walks' launches
-   (``walk_geometry``: a thread per pair, a warp a block);
+   (``walk_geometry``: ``walk.cu`` a thread per pair, a warp a block;
+   ``banded_walk.cu`` a warp per pair, four a block, its shared memory and
+   the blocks an SM holds);
 2. every branch of every kernel against its plain PyTorch version on the
    card, with ``==`` (tolerance 0: every output is an integer): at the main
    path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
@@ -94,7 +96,10 @@ Phases (any failure exits non-zero before a result is printed):
    reads, ties, all-padding reads, SW score 0, insertions for Gotoh F
    chains; ``BANDED_WALK_EDGES``: bands 8 and 20, steps of 3-4;
    ``WALK_RANDOM_WORDS``: random words whose walks leave the band on both
-   edges); on 32 of the 16 kbp pairs at band 512 (``phase_walk_vs_plain``);
+   edges, and at bands 333 and 512, whose rows hold more words than the
+   banded walk stages a row, random and drifting words on which it must
+   miss: its miss counts must show both kinds); on 32 of the 16 kbp pairs
+   at band 512 (``phase_walk_vs_plain``);
 9. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
    ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
    first at the edges of their row layout (``BANDED_EDGES``: bands of 8 and
@@ -131,7 +136,9 @@ Phases (any failure exits non-zero before a result is printed):
     max, GCUPS in band cells), each launch's geometry, the plain versions'
     on the 32-pair slice, the bounds; times of B7-B10 (4096 x 512 x 512;
     1024 x 16 kbp, band 512), their plain versions, their bounds from the
-    rows this run's walks visited (``walk_bound``);
+    rows this run's walks visited (``walk_bound``), the banded walk's
+    misses, and its share of each banded wall (models, ``map_long_reads``,
+    the 100 kbp round);
 13. the command line (``phase_cli``): every mode of ``CLI_MODES``
     (pairwise SW and NW with SAM and BAM, ``--reference-compat``, ``--tie
     sse``, ``--gap-open``, ``--matrix blosum62``; ``--panel`` with
@@ -403,8 +410,8 @@ def time_host(fn, reps: int = REPS) -> dict:
 
 def register_report(log_text: str) -> list[str]:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its
-    template arguments (kLocal, kCanon or kAffine, kMat), registers, stack
-    frame and spill bytes."""
+    template arguments (kLocal, kCanon or kAffine, kMat), registers, static
+    shared memory where it has any, stack frame and spill bytes."""
     out, kernel, spill = [], "?", ""
     for line in log_text.splitlines():
         if "Function properties for" in line:
@@ -416,7 +423,9 @@ def register_report(log_text: str) -> list[str]:
             spill = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
-            out.append(f"{kernel}: {regs.group(1) if regs else '?'} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{kernel}: {regs.group(1) if regs else '?'} registers, "
+                       + (f"{smem.group(1)} bytes smem, " if smem else "") + spill)
     return out
 
 
@@ -2442,7 +2451,16 @@ WALK_EDGES = (
 #: bits) whose walks leave the band on both edges.
 BANDED_WALK_EDGES = (("band 8", 32, 96, 120, 8), ("band 20", 32, 96, 120, 20),
                      ("band 8, steps of 3-4", 16, 48, 184, 8))
-WALK_RANDOM_WORDS = ((256, 200, 260, 8), (256, 200, 260, 20))
+#: Words that no fill writes, (pairs, m, n, band, kind) (``check_band_words``):
+#: random words at bands 8 and 20, whose walks leave the band on both edges;
+#: then at bands of 42 and 64 words a row, more than the 16 the banded walk
+#: stages a row (csrc/banded_walk.cu), random words and drifting words
+#: (``drifting_band_words``: UP runs and F chains that carry the cursor
+#: out of its window, LEFT runs and E chains below it, rows LEFT across
+#: the whole band), where the kernel must miss.
+WALK_RANDOM_WORDS = ((256, 200, 260, 8, "random"), (256, 200, 260, 20, "random"),
+                     (64, 200, 700, 333, "window"), (64, 200, 900, 512, "window"),
+                     (64, 600, 620, 333, "drift"), (64, 600, 640, 512, "drift"))
 
 
 def _walk_reads(rng, params, b, m, n, kind):
@@ -2551,20 +2569,89 @@ def check_banded_walk(label, r_np, f_np, params, band, dev, algs=None, ties=None
     return err
 
 
-def _random_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
-    """Band-relative words of random codes, LEFT 60% of the time, fields
-    past the band 0 (tests/test_torch_walk.py makes them alike)."""
+def _pack_band_codes(codes: np.ndarray, affine: bool) -> np.ndarray:
+    """(b, m, nw * 8) codes -> (b, m, nw) int32 words, 8 fields a word."""
+    b, m, fields = codes.shape
+    words = (codes.reshape(b, m, fields // 8, 8) << ((4 if affine else 2) * np.arange(8))).sum(
+        axis=3)
+    return words.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+def random_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
+    """Band-relative words of random codes, LEFT 60% of the time (long runs
+    across words), random Gotoh extend bits, fields past the band 0."""
     codes = np.where(rng.random((b, m, nw * 8)) < 0.6, 2, rng.integers(0, 4, (b, m, nw * 8)))
     if affine:
         codes = codes | (rng.integers(0, 4, codes.shape) << 2)
     codes[:, :, band:] = 0
-    words = (codes.reshape(b, m, nw, 8) << ((4 if affine else 2) * np.arange(8))).sum(axis=3)
-    return words.astype(np.int64).astype(np.uint32).view(np.int32)
+    return _pack_band_codes(codes, affine)
 
 
-def check_random_band_words(rng, dev, b, m, n, band) -> dict:
-    """B9 and B10 against their plain versions on random words and random
-    start cells; raises unless walks leave the band on both edges."""
+def drifting_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
+    """Band-relative words whose walks drift across the band: from the last
+    row up, runs of 40-160 rows that are UP everywhere (the cursor's band
+    field rises by the band's step a row; under Gotoh 80% of the fields
+    carry f_ext, so the walk chains in state F) alternate with runs of
+    20-100 DIAG rows, of which 15% are LEFT but for a stop every 100-400
+    fields (half of those rows with their stops on a word's first field,
+    and under Gotoh e_ext on 30% of the fields, so E chains continue across
+    stops and across words); a quarter of the pairs have one row, 10-60
+    rows above the last, that is LEFT across the whole band. Fields past
+    the band are 0."""
+    codes = np.full((b, m, nw * 8), 3, np.int64)
+    ext = np.zeros_like(codes)
+    for k in range(b):
+        r = m - 1
+        while r >= 0:
+            up = rng.random() < 0.5
+            rows = slice(max(r - int(rng.integers(40, 161) if up else rng.integers(20, 101)), -1)
+                         + 1, r + 1)
+            if up:
+                codes[k, rows] = 1
+                ext[k, rows] = np.where(rng.random(ext[k, rows].shape) < 0.8, 2, 0)
+            else:
+                for row in range(rows.start, rows.stop):
+                    if rng.random() < 0.15:
+                        stops = rng.choice(band, max(1, band // int(rng.integers(100, 401))),
+                                           replace=False)
+                        codes[k, row] = 2
+                        codes[k, row, stops & ~7 if rng.random() < 0.5 else stops] = 3
+                        ext[k, row] = rng.random(nw * 8) < 0.3
+            r = rows.start - 1
+        if k % 4 == 0:
+            codes[k, m - 1 - int(rng.integers(10, 61))] = 2
+    codes[:, :, band:] = 0
+    return _pack_band_codes(codes | (ext << 2) if affine else codes, affine)
+
+
+def band_exits(records, start_r, start_f, offsets, band) -> tuple[int, int]:
+    """The walks that stop on the band's right edge (a row entered past the
+    band) and on its left edge above column 0 (a row entered left of the
+    band, or a LEFT run down to the band's start)."""
+    right = left = 0
+    for rec, r, fp in zip(records, start_r, start_f):
+        r, fp = int(r), int(fp)
+        while r >= 0:
+            run, code = int(rec[r]) >> 2, int(rec[r]) & 3
+            off = int(offsets[r])
+            if code == 0:
+                right += fp - off >= band
+                left += off > 0 and (fp < off or fp - run == off - 1)
+                break
+            fp -= run + (code == 3)
+            r -= 1
+    return right, left
+
+
+def check_band_words(rng, dev, b, m, n, band, kind, stats) -> dict:
+    """B9 and B10 against their plain versions, SW and NW, on words that no
+    fill writes: ``kind`` "random" (``random_band_words``, random start
+    cells; raises unless walks leave the band on both edges), "window"
+    (the same at bands whose rows hold more words than the kernel stages a
+    row) or "drift" (``drifting_band_words``, walks from the last 40 rows,
+    mid-band; raises unless some LEFT run spans more than 128 fields, the
+    fields a staged window holds). ``stats`` (the wrapper's int64 (3,)
+    counts) gets the kernel's misses and rounds added."""
     from versalignlib_tpu_torch.ops import cuda_walk
     from versalignlib_tpu_torch.ops.banded import band_offsets
 
@@ -2573,38 +2660,42 @@ def check_random_band_words(rng, dev, b, m, n, band) -> dict:
     nw = -(-band // 8)
     err = {}
     for affine in (False, True):
-        ptr = torch.from_numpy(_random_band_words(rng, b, m, nw, band, affine)).to(dev)
-        rows = rng.integers(0, m, b)
-        best = torch.from_numpy(np.stack(
-            [rng.integers(0, 50, b), rows, offsets[rows] + rng.integers(0, band, b),
-             np.zeros(b, np.int64)], axis=1).astype(np.int32)).to(dev)
+        make = drifting_band_words if kind == "drift" else random_band_words
+        ptr = torch.from_numpy(make(rng, b, m, nw, band, affine)).to(dev)
+        if kind == "drift":
+            rows = rng.integers(m - 40, m, b)
+            cols = offsets[rows] + rng.integers(band // 4, 3 * band // 4, b)
+        else:
+            rows = rng.integers(0, m, b)
+            cols = offsets[rows] + rng.integers(0, band, b)
+        best = torch.from_numpy(np.stack([rng.integers(0, 50, b), rows, cols,
+                                          np.zeros(b, np.int64)], axis=1).astype(np.int32)).to(dev)
         keep = torch.from_numpy(rng.integers(-20, 20, (b, band)).astype(np.int32)).to(dev)
         mrp = torch.from_numpy(np.where(rng.random(b) < 0.1, -1, rows).astype(np.int32)).to(dev)
         mxp = torch.from_numpy(rng.integers(-1, n, b).astype(np.int32)).to(dev)
         key = f"banded_walk[{'affine' if affine else 'linear'}]"
-        right = left = 0
+        right = left = longest = 0
+        before = stats.tolist()
         for local in (True, False):
             args = (ptr, best, keep, mrp, mxp, offsets, n, band, local, affine)
-            got = cuda_walk.banded_walk(*args)
+            got = cuda_walk.banded_walk(*args, stats=stats)
             err[key] = max(err.get(key, 0), _compare_walk(
-                f"{key} random words band {band} local {local}", got, plain_banded_walk(*args)))
+                f"{key} {kind} words band {band} local {local}", got, plain_banded_walk(*args)))
             rec, sr, sf = (x.cpu().numpy() for x in got[:3])
-            for k in range(b):
-                r, fp = int(sr[k]), int(sf[k])
-                while r >= 0:
-                    run, code = int(rec[k, r]) >> 2, int(rec[k, r]) & 3
-                    off = int(offsets[r])
-                    if code == 0:
-                        right += fp - off >= band
-                        left += off > 0 and (fp < off or fp - run == off - 1)
-                        break
-                    fp -= run + (code == 3)
-                    r -= 1
-        if not (right and left):
+            exits = band_exits(rec, sr, sf, offsets, band)
+            right, left = right + exits[0], left + exits[1]
+            longest = max(longest, int((rec >> 2).max()))
+        if kind == "random" and not (right and left):
             raise AssertionError(f"{key} band {band}: walks off the right edge {right}, "
                                  f"off the left edge {left}; both must occur")
-        log(f"[walk] banded_walk.cu == plain  {key} random words B={b} {m}x{n} band {band}, "
-            f"SW, NW: {right} walks off the band's right edge, {left} off its left edge")
+        if kind == "drift" and longest <= 128:
+            raise AssertionError(f"{key} band {band}: the longest LEFT run spans {longest} "
+                                 "fields, within one staged window")
+        reissued, deep, _ = (x - y for x, y in zip(stats.tolist(), before))
+        log(f"[walk] banded_walk.cu == plain  {key} {kind} words B={b} {m}x{n} band {band}, "
+            f"SW, NW: {right} walks off the band's right edge, {left} off its left edge, "
+            f"longest LEFT run {longest} fields; misses: {reissued} windows staged again, "
+            f"{deep} runs below a window")
     return err
 
 
@@ -2653,9 +2744,16 @@ def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
                 f"{name} {label}", r_np, f_np, params, band, dev))
         log(f"[walk] banded_walk.cu == plain  linear, affine SW, NW x both flavors B={b} "
             f"{m}x{n}: {label}")
-    for b, m, n, band in WALK_RANDOM_WORDS:
-        for key, e in check_random_band_words(rng, dev, b, m, n, band).items():
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    for b, m, n, band, kind in WALK_RANDOM_WORDS:
+        for key, e in check_band_words(rng, dev, b, m, n, band, kind, stats).items():
             merge(key, e)
+    reissued, deep, _ = (int(x) for x in stats.tolist())
+    if not (reissued and deep):
+        raise AssertionError(f"banded_walk.cu staged {reissued} windows again and read {deep} "
+                             "runs past a window on the window and drift words: both must occur")
+    log(f"[walk] banded_walk.cu misses on the window and drift words: {reissued} cursors "
+        f"left their window (the ring staged again), {deep} runs read words below it")
     log(f"[walk] main shapes and edges: {time.perf_counter() - t0:.1f} s")
     reads, refs = pairs[0][:BANDED_SLICE], pairs[1][:BANDED_SLICE]
     plain_ms = {}
@@ -2678,12 +2776,32 @@ def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
     return err, plain_ms
 
 
-def walk_geometry(lines: list[str], pairs: int, sms: int) -> list[str]:
-    """A walk launch of ``pairs`` pairs (a thread each, a warp a block):
-    blocks, warps per SM, and each instantiation's registers."""
-    warps = -(-pairs // 32)
-    return [f"{pairs} pairs: {warps} blocks of 32 threads, {warps / sms:.2f} warps per SM "
-            f"on {sms} SMs"] + [line for line in lines if "registers" in line]
+def walk_geometry(source: str, lines: list[str], pairs: int, sms: int) -> list[str]:
+    """A walk launch of ``pairs`` pairs: ``walk.cu`` a thread a pair, a warp
+    a block; ``banded_walk.cu`` a warp a pair, ``BANDED_WALK_WARPS`` a
+    block, with its ring in shared memory. Blocks, warps per SM, and each
+    instantiation's registers (and for the banded walk the blocks an SM
+    holds at once by its registers and shared memory)."""
+    from versalignlib_tpu_torch.ops.cuda_walk import BANDED_WALK_SMEM, BANDED_WALK_WARPS
+
+    if source == "walk.cu":
+        warps = -(-pairs // 32)
+        return [f"{pairs} pairs: {warps} blocks of 32 threads, {warps / sms:.2f} warps per SM "
+                f"on {sms} SMs"] + [line for line in lines if "registers" in line]
+    blocks = -(-pairs // BANDED_WALK_WARPS)
+    out = [f"{pairs} pairs: {blocks} blocks of {BANDED_WALK_WARPS} warps "
+           f"({BANDED_WALK_WARPS * 32} threads, {BANDED_WALK_SMEM} bytes of shared memory), "
+           f"{pairs / sms:.2f} warps per SM on {sms} SMs, {min(blocks, sms)} SMs busy"]
+    for line in lines:
+        regs = re.search(r": (\d+) registers", line)
+        smem = re.search(r"(\d+) bytes smem", line)
+        if regs:
+            if smem and int(smem.group(1)) != BANDED_WALK_SMEM:
+                raise AssertionError(f"banded_walk.cu holds {smem.group(1)} bytes of shared "
+                                     f"memory a block, not {BANDED_WALK_SMEM}: {line}")
+            out.append(f"{line}; {resident_blocks(int(regs.group(1)), BANDED_WALK_SMEM)} "
+                       "blocks resident per SM")
+    return out
 
 
 def walk_bound(b: int, m: int, visited: int, start_bytes: int) -> float:
@@ -2752,19 +2870,26 @@ def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
             out = cuda_banded.fill(r, f, offs, mrp, params, alg, tie, BAND)
             args = (*out, mrp, mxp, offs, n, BAND, key == "sw", params.affine)
             km = time_cuda(lambda: cuda_walk.banded_walk(*args))
-            rec, sr = cuda_walk.banded_walk(*args)[:2]
+            stats = torch.zeros(3, dtype=torch.int64, device=dev)
+            rec, sr = cuda_walk.banded_walk(*args, stats=stats)[:2]
             visited, chain = _visited_rows(rec, sr)
+            reissued, deep, rounds = (int(x) for x in stats.tolist())
             start_bytes = b * (16 if key == "sw" else 8 + 4 * BAND)
             bd = walk_bound(b, m, visited, start_bytes)
             pl = plain_ms[name].get(key)
             t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
                       "plain_ms": pl, "bound_ms": bd, "visited_rows": visited,
-                      "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain}
+                      "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain,
+                      "windows_staged_again": reissued, "runs_below_window": deep,
+                      "rows_a_round": visited / rounds}
             log(f"[times] banded_walk.cu {name} {key} B={b} {m}x{n} band {BAND}: "
                 f"{km['median']:.3f} ms (min {km['min']:.3f}, max {km['max']:.3f}); plain "
                 f"{'not run' if pl is None else f'{pl:.1f} ms'} on {BANDED_SLICE} pairs; "
-                f"bound {bd:.4f} ms (bytes: {visited} rows "
-                f"visited); longest chain {chain} rows, {t[key]['ns_per_chain_row']:.0f} ns a row")
+                f"bound {bd:.4f} ms ({100 * bd / km['median']:.1f}%; bytes: {visited} rows "
+                f"visited); longest chain {chain} rows, {t[key]['ns_per_chain_row']:.1f} ns a "
+                f"row; misses {reissued} windows staged again, {deep} runs below a window "
+                f"({(reissued + deep) / visited:.2e} a visited row); {rounds} rounds, "
+                f"{visited / rounds:.2f} rows a round")
             del out, args
         kind = "affine" if params.affine else "linear"
         entry = _walk_entry(f"banded_walk[{kind}]", name,
@@ -2773,6 +2898,11 @@ def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
                             t, splits.get(f"banded:{name}"))
         entry.update(band=BAND, plain_pairs=BANDED_SLICE)
         entries.append(entry)
+        for label, split in (splits.get(f"banded:{name}") or {}).items():
+            split = split.get("split", split)
+            log(f"[times] banded_walk.cu {name} in {label}: walk {split['walk_ms']:.3f} of a "
+                f"{split['wall_ms']:.3f} ms wall ({100 * split['walk_ms'] / split['wall_ms']:.1f}"
+                "%): " + json.dumps({k: round(v, 3) for k, v in split.items()}))
     return entries
 
 
@@ -3843,7 +3973,7 @@ def main() -> int:
     for line in score_geometry(reg_lines["score.cu"], sms):
         log(f"[build] score.cu launch: {line}")
     for src, pairs in (("walk.cu", ALIGN_PAIRS), ("banded_walk.cu", BANDED_PAIRS)):
-        for line in walk_geometry(reg_lines[src], pairs, sms):
+        for line in walk_geometry(src, reg_lines[src], pairs, sms):
             log(f"[build] {src} launch: {line}")
 
     rng = np.random.default_rng(args.seed)

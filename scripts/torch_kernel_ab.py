@@ -3,7 +3,7 @@ interleaved.
 
     python3 scripts/torch_kernel_ab.py DIR_A DIR_B [--pairs 10] [--out FILE]
         [--kernels score.cu search.cu align.cu align_affine.cu banded_score.cu
-                   banded_align.cu]
+                   banded_align.cu walk.cu banded_walk.cu]
 
 Each DIR is the root of a checkout holding ``versalignlib_tpu_torch/csrc``.
 Its sources are built with the package's nvcc flags into ``build/ab/<i>/``
@@ -21,7 +21,12 @@ path's align shape (``chip_smoke.search_align_pairs``), SW and NW,
 canonical flavor. The banded kernels (``banded_score.cu``,
 ``banded_align.cu``) run through each side's own ``ops/cuda_banded.py`` at
 the banded models' launch (1024 pairs of 16 kbp, band 512) under the four
-parameter sets, SW and NW (the fill in the canonical flavor). Each round times every side once (CUDA-event median of 7
+parameter sets, SW and NW (the fill in the canonical flavor). The walks
+(``walk.cu``, ``banded_walk.cu``) run through each side's own
+``ops/cuda_walk.py`` on the words this checkout's fills write: the dense
+walk at 4096 pairs of 512 x 512, the banded walk at the banded models'
+launch, each under the default DNA and BWA-MEM affine sets, SW and NW
+(canonical flavor). Each round times every side once (CUDA-event median of 7
 after a warm-up, wrapper included), the order reversed every other round,
 and every side's outputs must equal the first side's. Prints one line per
 case: each side's median over the rounds and its quartiles, and in how
@@ -57,9 +62,12 @@ SOURCES = {"score.cu": ("cuda_score", "SCORE_KERNEL"),
        "align.cu": ("cuda_align", "ALIGN_KERNEL"),
        "align_affine.cu": ("cuda_align", "AFFINE_KERNEL"),
        "banded_score.cu": ("cuda_banded", "BANDED_SCORE_KERNEL"),
-       "banded_align.cu": ("cuda_banded", "BANDED_ALIGN_KERNEL")}
+       "banded_align.cu": ("cuda_banded", "BANDED_ALIGN_KERNEL"),
+       "walk.cu": ("cuda_walk", "WALK_KERNEL"),
+       "banded_walk.cu": ("cuda_walk", "BANDED_WALK_KERNEL")}
 FILLS = ("align.cu", "align_affine.cu")
 BANDED = ("banded_score.cu", "banded_align.cu")
+WALKS = ("walk.cu", "banded_walk.cu")
 
 
 def own_wrapper(side: int, checkout: pathlib.Path, module: str):
@@ -125,6 +133,8 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
             fills.append((f"{name} {b}x{m}x{n}", params, r_np, f_np, (TieBreak.DIAG_UP_LEFT,)))
     if set(BANDED) & set(sources):
         out += banded_cases(dev, sources, wrappers, rng)
+    if set(WALKS) & set(sources):
+        out += walk_cases(dev, sources, wrappers, rng)
     for label, params, r_np, f_np, ties in fills:
         source = cs._fill_source(params)
         if source not in sources:
@@ -170,6 +180,47 @@ def banded_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
                             tuple(x for x in wrappers[i]["cuda_banded"].fill(
                                 r, f, o, m, p, a, tie, cs.BAND) if x is not None))
                 out.append((f"{name} {alg.name}", source, call))
+    return out
+
+
+def walk_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
+    """The walks on the words this checkout's fills write (the package's
+    own ``cuda_align.fill`` and ``cuda_banded.fill``): ``walk.cu`` at 4096
+    pairs of 512 x 512, ``banded_walk.cu`` at 1024 HiFi-like pairs of 16 kbp,
+    band 512, under the default DNA and BWA-MEM affine sets, SW and NW."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_banded
+
+    sets = cs._param_sets()
+    tie = TieBreak.DIAG_UP_LEFT
+    out = []
+    if "banded_walk.cu" in sources:
+        genome = cs.make_genome(rng)[1]
+        reads, refs = cs.make_banded_pairs(rng, genome)
+    for pname in ("dna_default", "dna_affine_bwamem"):
+        params = sets[pname]
+        if "walk.cu" in sources:
+            r_np = cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH)
+            f_np = cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH)
+            r, f = torch.from_numpy(r_np).to(dev), torch.from_numpy(f_np).to(dev)
+            mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+            mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
+            for alg in Algorithm:
+                args = (*cuda_align.fill(r, f, mrp, params, alg, tie), mrp, mxp, cs.LENGTH,
+                        alg == Algorithm.SMITH_WATERMAN, params.affine)
+                out.append((f"walk.cu {pname} {cs.ALIGN_PAIRS}x{cs.LENGTH}x{cs.LENGTH} "
+                            f"{alg.name}", "walk.cu",
+                            lambda i, a=args: wrappers[i]["cuda_walk"].walk(*a)))
+        if "banded_walk.cu" in sources:
+            r, f, offs = cs._banded_inputs(reads, refs, cs.BAND, None, dev)
+            mrp = torch.from_numpy(cuda_align.last_valid_pos(reads, tie, params.matrix)).to(dev)
+            mxp = torch.from_numpy(cuda_align.last_valid_pos(refs, tie, params.matrix)).to(dev)
+            for alg in Algorithm:
+                args = (*cuda_banded.fill(r, f, offs, mrp, params, alg, tie, cs.BAND), mrp, mxp,
+                        offs, f.shape[1], cs.BAND, alg == Algorithm.SMITH_WATERMAN,
+                        params.affine)
+                out.append((f"banded_walk.cu {pname} {r.shape[0]}x{r.shape[1]}x{f.shape[1]} "
+                            f"band {cs.BAND} {alg.name}", "banded_walk.cu",
+                            lambda i, a=args: wrappers[i]["cuda_walk"].banded_walk(*a)))
     return out
 
 

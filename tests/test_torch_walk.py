@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import band_exits, drifting_band_words, random_band_words
 from tests.conftest import random_codes
 from versalignlib_tpu.ops import walk as jax_walk
 from versalignlib_tpu_torch import AlignmentEngine, AlignmentParameters, alphabet
@@ -101,38 +102,6 @@ def _banded_pairs(rng, b, m, n):
         reads[k] = src[:m]
     reads[0] = 0
     return reads, refs
-
-
-def _random_words(rng, b, m, nw, band, affine):
-    """Pointer words of random codes, LEFT 60% of the time (long runs
-    across words), fields past the band 0: 2-bit codes in the low 16 bits
-    of a word, or 4-bit codes with random extend bits."""
-    codes = np.where(rng.random((b, m, nw * 8)) < 0.6, 2, rng.integers(0, 4, (b, m, nw * 8)))
-    if affine:
-        codes = codes | (rng.integers(0, 4, codes.shape) << 2)
-    codes[:, :, band:] = 0
-    bits = 4 if affine else 2
-    words = (codes.reshape(b, m, nw, 8) << (bits * np.arange(8))).sum(axis=3)
-    return torch.from_numpy(words.astype(np.int64).astype(np.uint32).view(np.int32))
-
-
-def _band_exits(records, start_r, start_f, offsets, band):
-    """Count the walks that stop on the band's right edge (a row entered
-    past the band) and on its left edge above column 0 (a row entered left
-    of the band, or a LEFT run down to the band's start)."""
-    right = left = 0
-    for rec, r, fp in zip(records, start_r, start_f):
-        r, fp = int(r), int(fp)
-        while r >= 0:
-            k, code = int(rec[r]) >> 2, int(rec[r]) & 3
-            off = int(offsets[r])
-            if code == 0:
-                right += fp - off >= band
-                left += off > 0 and (fp < off or fp - k == off - 1)
-                break
-            fp -= k + (code == 3)
-            r -= 1
-    return right, left
 
 
 def _check_replay(records, starts, reads, refs, want_raw, want_objs, params, alg):
@@ -252,7 +221,7 @@ def test_banded_walk_on_random_words_matches_jax(gap, alg):
     rng = np.random.default_rng(90 + 2 * int(alg) + affine)
     offsets = band_offsets(m, m, n, band)
     nw = -(-band // 8)
-    ptr = _random_words(rng, b, m, nw, band, affine)
+    ptr = torch.from_numpy(random_band_words(rng, b, m, nw, band, affine))
     rows = rng.integers(0, m, b)
     best = np.stack([rng.integers(0, 50, b), rows, offsets[rows] + rng.integers(0, band, b),
                      np.zeros(b, np.int64)], axis=1).astype(np.int32)
@@ -269,7 +238,7 @@ def test_banded_walk_on_random_words_matches_jax(gap, alg):
     np.testing.assert_array_equal(records.numpy(), _unblock(want[0], b))
     for got, w in zip(starts, want[1:]):
         np.testing.assert_array_equal(got.numpy(), _unblock(w, b))
-    right, left = _band_exits(records.numpy(), *(x.numpy() for x in starts[:2]), offsets, band)
+    right, left = band_exits(records.numpy(), *(x.numpy() for x in starts[:2]), offsets, band)
     assert right > 0 and left > 0, (right, left)
     # The host decode stops where the walk does on these words too.
     reads, refs = random_codes(rng, b, m), random_codes(rng, b, n)
@@ -280,6 +249,82 @@ def test_banded_walk_on_random_words_matches_jax(gap, alg):
         raw=raw)
     _check_replay(records.numpy(), starts, reads, refs, decode(True), decode(False), params,
                   alg)
+
+
+@pytest.mark.parametrize("alg", list(Algorithm))
+@pytest.mark.parametrize("gap", list(_GAPS))
+@pytest.mark.parametrize("band", [333, 512])
+@pytest.mark.parametrize("kind", ["random", "drift"])
+def test_banded_walk_on_window_words_matches_jax(kind, band, gap, alg):
+    """Rows of 42 and 64 words, more than the 16 a row that csrc/banded_walk.cu
+    stages: random words from random start cells, and the words of
+    ``chip_smoke.drifting_band_words`` (UP runs and F chains that carry the
+    cursor across the band, LEFT runs and E chains across words and past
+    128 fields, rows LEFT across the whole band) walked from the last rows,
+    mid-band. The card holds the kernel's windows and misses to the plain
+    walk on such words (``chip_smoke.check_band_words``)."""
+    b, m, n = 16, 160, band + 48
+    affine = gap == "affine"
+    local = alg == Algorithm.SMITH_WATERMAN
+    rng = np.random.default_rng(band + 2 * int(alg) + affine + 4 * (kind == "drift"))
+    offsets = band_offsets(m, m, n, band)
+    nw = -(-band // 8)
+    if kind == "drift":
+        ptr = torch.from_numpy(drifting_band_words(rng, b, m, nw, band, affine))
+        rows = rng.integers(m - 40, m, b)
+        cols = offsets[rows] + rng.integers(band // 4, 3 * band // 4, b)
+    else:
+        ptr = torch.from_numpy(random_band_words(rng, b, m, nw, band, affine))
+        rows = rng.integers(0, m, b)
+        cols = offsets[rows] + rng.integers(0, band, b)
+    best = np.stack([rng.integers(0, 50, b), rows, cols, np.zeros(b, np.int64)],
+                    axis=1).astype(np.int32)
+    keep = rng.integers(-20, 20, (b, band)).astype(np.int32)
+    mrp = np.where(rng.random(b) < 0.1, -1, rows).astype(np.int32)
+    mxp = rng.integers(-1, n, b).astype(np.int32)
+    records, *starts = (walks.walk_banded_affine if affine else walks.walk_banded)(
+        ptr, torch.from_numpy(best), torch.from_numpy(keep), torch.from_numpy(mrp),
+        torch.from_numpy(mxp), torch.from_numpy(offsets), n, band, local)
+    jax_fn = jax_walk.walk_blocks_banded_affine if affine else jax_walk.walk_blocks_banded
+    want = jax_fn(_block(ptr.numpy()), _block(best), _block(keep), _block(mrp, -1),
+                  _block(mxp, -1), jnp.asarray(offsets), jnp.asarray(offsets),
+                  m=m, n=n, band=band, local=local)
+    np.testing.assert_array_equal(records.numpy(), _unblock(want[0], b))
+    for got, w in zip(starts, want[1:]):
+        np.testing.assert_array_equal(got.numpy(), _unblock(w, b))
+
+
+@pytest.mark.parametrize("band", [333, 512])
+def test_drifting_words_leave_a_staged_window(band):
+    """On ``drifting_band_words`` (64 pairs, as chip_smoke walks them) the
+    plain walks cross more than the 128 fields a staged window holds: LEFT
+    runs past 128 fields, and cursors whose band field moves by more than
+    128 over 96 rows (the rows a stage is staged ahead of its walk)."""
+    b, m, n = 64, 600, band + 107
+    offsets = band_offsets(m, m, n, band)
+    rng = np.random.default_rng(band)
+    for affine in (False, True):
+        ptr = torch.from_numpy(drifting_band_words(rng, b, m, -(-band // 8), band, affine))
+        rows = rng.integers(m - 40, m, b)
+        best = np.stack([np.ones(b, np.int64), rows,
+                         offsets[rows] + rng.integers(band // 4, 3 * band // 4, b),
+                         np.zeros(b, np.int64)], axis=1).astype(np.int32)
+        records, start_r, start_f, _ = (walks.walk_banded_affine if affine else
+                                        walks.walk_banded)(
+            ptr, torch.from_numpy(best), None, None, None, torch.from_numpy(offsets), n, band,
+            True)
+        records = records.numpy()
+        assert (records >> 2).max() > 128
+        drift = 0
+        for rec, r, fp in zip(records, start_r.numpy(), start_f.numpy()):
+            fields = {}
+            while r >= 0 and rec[r] & 3:
+                fields[r] = fp - offsets[r]
+                fp -= (rec[r] >> 2) + (rec[r] & 3 == 3)
+                r -= 1
+            drift = max([drift] + [abs(f - fields[r + 96]) for r, f in fields.items()
+                                   if r + 96 in fields])
+        assert drift > 128, drift
 
 
 def test_replay_checks_record_shape():

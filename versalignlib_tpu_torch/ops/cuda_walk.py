@@ -27,7 +27,13 @@ WALK_KERNEL = CudaKernel("walk.cu", "val_walk_launch", [_P] * 7 + [_I] * 6 + [_P
 
 #: The banded walk (B9, B10), with its own launch count.
 BANDED_WALK_KERNEL = CudaKernel(
-    "banded_walk.cu", "val_banded_walk_launch", [_P] * 8 + [_I] * 7 + [_P])
+    "banded_walk.cu", "val_banded_walk_launch", [_P] * 9 + [_I] * 7 + [_P])
+#: Warps (pairs) a block of the banded walk, and the shared memory a block
+#: holds: a ring of 4 stages of 32 rows a warp, 8 staged words a row at a
+#: pitch of 12, and two ints (band start, first staged word) a row
+#: (csrc/banded_walk.cu).
+BANDED_WALK_WARPS = 4
+BANDED_WALK_SMEM = BANDED_WALK_WARPS * 4 * 32 * (12 + 2) * 4
 
 
 def resolve_device_walk(device_walk: bool | None, device: torch.device) -> bool:
@@ -85,10 +91,17 @@ def walk(ptr: torch.Tensor, aux: torch.Tensor, hsel: torch.Tensor | None,
 
 def banded_walk(ptr: torch.Tensor, best: torch.Tensor | None, keep: torch.Tensor | None,
                 mrp: torch.Tensor, mxp: torch.Tensor, offsets, n: int, band: int,
-                local: bool, affine: bool):
+                local: bool, affine: bool, stats: torch.Tensor | None = None):
     """Banded walk over the banded fill's band-relative ptr (B, m,
     ceil(band/8)), its best (B, 4) for SW or keep (B, band) for NW, and the
-    (m,) band starts ``offsets`` (numpy or a tensor)."""
+    (m,) band starts ``offsets`` (numpy or a tensor).
+
+    ``stats``, an int64 (3,) tensor on the card, gets the kernel's counts
+    added: the rows whose cursor left the window staged for it (the ring
+    was staged again around it), the rows whose LEFT run or E chain read
+    words below their window from device memory, and the rounds (a round
+    settles the rows up to the first that is not DIAG with no LEFT). The
+    plain version has none of these and leaves it as it is."""
     b, m, nw = ptr.shape
     if nw != -(-band // 8) or not 1 <= band <= n or len(offsets) != m:
         raise ValueError(f"banded walk inputs {tuple(ptr.shape)} do not fit {b} pairs of "
@@ -105,10 +118,13 @@ def banded_walk(ptr: torch.Tensor, best: torch.Tensor | None, keep: torch.Tensor
     records, ends = _outputs(b, m, dev)
     if b == 0:
         return records, ends[0], ends[1], ends[2]
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
+                              or stats.shape != (3,)):
+        raise ValueError("stats must be an int64 (3,) tensor on the walk's device")
     ptr, best, keep = (None if x is None else x.contiguous() for x in (ptr, best, keep))
     mrp, mxp = _ints(mrp, mxp)
     BANDED_WALK_KERNEL.launch(
         ptr.data_ptr(), _addr(best), _addr(keep), _addr(mrp), _addr(mxp), offs.data_ptr(),
-        records.data_ptr(), ends.data_ptr(), b, m, n, band, nw, int(local), int(affine),
-        torch.cuda.current_stream(dev).cuda_stream)
+        records.data_ptr(), ends.data_ptr(), _addr(stats), b, m, n, band, nw, int(local),
+        int(affine), torch.cuda.current_stream(dev).cuda_stream)
     return records, ends[0], ends[1], ends[2]
