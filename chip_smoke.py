@@ -23,9 +23,8 @@ Phases (any failure exits non-zero before a result is printed):
    resident per SM, shared memory, memory plan), and the one-vs-many
    kernel's at each search launch, with its memory plan, once the search
    data is made (``search_geometry``), and the walks' launches
-   (``walk_geometry``: ``walk.cu`` a thread per pair, a warp a block;
-   ``banded_walk.cu`` a warp per pair, four a block, its shared memory and
-   the blocks an SM holds);
+   (``walk_geometry``: ``walk.cu`` and ``banded_walk.cu`` a warp per pair,
+   four a block, their shared memory and the blocks an SM holds);
 2. every branch of every kernel against its plain PyTorch version on the
    card, with ``==`` (tolerance 0: every output is an integer): at the main
    path's launch shapes (scores 16384 x 512 x 512; fills 4096 and 256 x 512
@@ -98,8 +97,10 @@ Phases (any failure exits non-zero before a result is printed):
    ``WALK_RANDOM_WORDS``: random words whose walks leave the band on both
    edges, and at bands 333 and 512, whose rows hold more words than the
    banded walk stages a row, random and drifting words on which it must
-   miss: its miss counts must show both kinds); on 32 of the 16 kbp pairs
-   at band 512 (``phase_walk_vs_plain``);
+   miss: its miss counts must show both kinds; ``DENSE_WALK_WORDS``: the
+   same for the dense walk, random and drifting words at rows of 57-188
+   words, wider than the window it stages a row); on 32 of the 16 kbp
+   pairs at band 512 (``phase_walk_vs_plain``);
 9. every branch of the banded kernels (``csrc/banded_score.cu``, B5;
    ``csrc/banded_align.cu``, B6) against its plain version with ``==``:
    first at the edges of their row layout (``BANDED_EDGES``: bands of 8 and
@@ -134,11 +135,12 @@ Phases (any failure exits non-zero before a result is printed):
     (``phase_long_round``);
 12. times of B5 and B6 at 1024 pairs of 16 kbp, band 512 (median of 7, min,
     max, GCUPS in band cells), each launch's geometry, the plain versions'
-    on the 32-pair slice, the bounds; times of B7-B10 (4096 x 512 x 512;
-    1024 x 16 kbp, band 512), their plain versions, their bounds from the
-    rows this run's walks visited (``walk_bound``), the banded walk's
-    misses, and its share of each banded wall (models, ``map_long_reads``,
-    the 100 kbp round);
+    on the 32-pair slice, the bounds; times of B7-B10 (4096 x 512 x 512 and
+    ``map_reads``' align shape, 2048 x 150 x 1536; 1024 x 16 kbp, band
+    512), their plain versions, their bounds from the rows this run's walks
+    visited (``walk_bound``), their misses and rows a round, and the banded
+    walk's share of each banded wall (models, ``map_long_reads``, the 100
+    kbp round);
 13. the command line (``phase_cli``): every mode of ``CLI_MODES``
     (pairwise SW and NW with SAM and BAM, ``--reference-compat``, ``--tie
     sse``, ``--gap-open``, ``--matrix blosum62``; ``--panel`` with
@@ -392,6 +394,26 @@ def time_cuda(fn, reps: int = REPS) -> dict:
         times.append(start.elapsed_time(end))
     return {"median": statistics.median(times), "min": min(times),
             "max": max(times), "k": reps}
+
+
+def time_device(fn, reps: int = REPS) -> float:
+    """Median ms of ``fn``'s work on the card alone, after one warm-up: each
+    call is queued behind a spin of the card (``torch.cuda._sleep``), so
+    that the host's time to launch it, which ``time_cuda`` counts where the
+    card is faster, falls outside the events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def time_host(fn, reps: int = REPS) -> dict:
@@ -2461,6 +2483,15 @@ BANDED_WALK_EDGES = (("band 8", 32, 96, 120, 8), ("band 20", 32, 96, 120, 20),
 WALK_RANDOM_WORDS = ((256, 200, 260, 8, "random"), (256, 200, 260, 20, "random"),
                      (64, 200, 700, 333, "window"), (64, 200, 900, 512, "window"),
                      (64, 600, 620, 333, "drift"), (64, 600, 640, 512, "drift"))
+#: Dense words that no fill writes, (pairs, m, n, kind) (``check_dense_words``),
+#: at rows wider than the window the dense walk stages a row (128 columns
+#: linear, 64 Gotoh; csrc/walk.cuh): random words from random start cells
+#: ("window") and drifting words (``drifting_dense_words``: UP runs and F
+#: chains that carry the cursor off the diagonal and out of its window,
+#: LEFT runs and E chains below it, rows LEFT across the whole row), where
+#: the kernel must miss.
+DENSE_WALK_WORDS = ((64, 200, 1500, "window"), (64, 200, 900, "window"),
+                    (64, 600, 1500, "drift"), (64, 600, 900, "drift"))
 
 
 def _walk_reads(rng, params, b, m, n, kind):
@@ -2569,12 +2600,14 @@ def check_banded_walk(label, r_np, f_np, params, band, dev, algs=None, ties=None
     return err
 
 
-def _pack_band_codes(codes: np.ndarray, affine: bool) -> np.ndarray:
-    """(b, m, nw * 8) codes -> (b, m, nw) int32 words, 8 fields a word."""
+def _pack_codes(codes: np.ndarray, affine: bool, per_word: int) -> np.ndarray:
+    """(b, m, words * per_word) codes -> (b, m, words) int32 words of
+    ``per_word`` fields, 4 bits a field under ``affine``, else 2."""
     b, m, fields = codes.shape
-    words = (codes.reshape(b, m, fields // 8, 8) << ((4 if affine else 2) * np.arange(8))).sum(
-        axis=3)
-    return words.astype(np.int64).astype(np.uint32).view(np.int32)
+    shifts = ((4 if affine else 2) * np.arange(per_word)).astype(np.uint32)
+    words = (codes.reshape(b, m, fields // per_word, per_word).astype(np.uint32)
+             << shifts).sum(axis=3, dtype=np.uint32)
+    return words.view(np.int32)
 
 
 def random_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
@@ -2584,7 +2617,7 @@ def random_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
     if affine:
         codes = codes | (rng.integers(0, 4, codes.shape) << 2)
     codes[:, :, band:] = 0
-    return _pack_band_codes(codes, affine)
+    return _pack_codes(codes, affine, 8)
 
 
 def drifting_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
@@ -2621,7 +2654,98 @@ def drifting_band_words(rng, b, m, nw, band, affine) -> np.ndarray:
         if k % 4 == 0:
             codes[k, m - 1 - int(rng.integers(10, 61))] = 2
     codes[:, :, band:] = 0
-    return _pack_band_codes(codes | (ext << 2) if affine else codes, affine)
+    return _pack_codes(codes | (ext << 2) if affine else codes, affine, 8)
+
+
+def random_dense_words(rng, b, m, n, affine) -> np.ndarray:
+    """Dense pointer words of random codes, (b, m, ceil(n/16)) of 2-bit
+    codes or under ``affine`` (b, m, ceil(n/8)) of 4-bit Gotoh codes: LEFT
+    60% of the time (long runs across words), random Gotoh extend bits,
+    fields past column n - 1 zero."""
+    per = 8 if affine else 16
+    fields = -(-n // per) * per
+    codes = np.where(rng.random((b, m, fields)) < 0.6, 2,
+                     rng.integers(0, 4, (b, m, fields), np.uint8)).astype(np.uint8)
+    if affine:
+        codes |= rng.integers(0, 4, codes.shape, np.uint8) << 2
+    codes[:, :, n:] = 0
+    return _pack_codes(codes, affine, per)
+
+
+def drifting_dense_words(rng, b, m, n, affine) -> np.ndarray:
+    """Dense pointer words (as ``random_dense_words``) whose walks drift off
+    the diagonal: from the last row up, runs of 40-200 rows that are UP
+    everywhere (the cursor keeps its column, one column a row right of the
+    diagonal; under Gotoh 80% of the fields carry f_ext, so the walk chains
+    in state F) alternate with runs of 20-100 DIAG rows, of which 8% are
+    LEFT but for a stop every 100-400 fields (half of those rows with their
+    stops on a word's first field, and under Gotoh e_ext on 30% of the
+    fields, so E chains continue across stops and across words); a quarter
+    of the pairs have one row, 10-60 rows above the last, that is LEFT
+    across the whole row. Fields past column n - 1 are 0."""
+    per = 8 if affine else 16
+    fields = -(-n // per) * per
+    codes = np.full((b, m, fields), 3, np.uint8)
+    ext = np.zeros_like(codes)
+    for k in range(b):
+        r = m - 1
+        while r >= 0:
+            up = rng.random() < 0.5
+            rows = slice(max(r - int(rng.integers(40, 201) if up else rng.integers(20, 101)), -1)
+                         + 1, r + 1)
+            if up:
+                codes[k, rows] = 1
+                ext[k, rows] = np.where(rng.random(ext[k, rows].shape) < 0.8, 2, 0)
+            else:
+                for row in np.flatnonzero(rng.random(rows.stop - rows.start) < 0.08):
+                    row += rows.start
+                    stops = rng.integers(0, n, max(1, n // int(rng.integers(100, 401))))
+                    codes[k, row] = 2
+                    codes[k, row, stops & -per if rng.random() < 0.5 else stops] = 3
+                    ext[k, row] = rng.random(fields) < 0.3
+            r = rows.start - 1
+        if k % 4 == 0:
+            codes[k, m - 1 - int(rng.integers(10, 61))] = 2
+    codes[:, :, n:] = 0
+    return _pack_codes(codes | (ext << 2) if affine else codes, affine, per)
+
+
+def dense_word_starts(rng, b, m, n, kind):
+    """Start inputs for a dense walk on words that no fill writes: the SW
+    aux (b, 4) [score, row, column, 0], the NW aux (b, 4) [column, 0, 0, 0]
+    with hsel (b, n + 1), and mrp, mxp (b,), as int32 arrays. Kind "drift"
+    starts in the last 40 rows, mid-row; else anywhere. A tenth of the NW
+    walks never start (mrp -1), a fifth start at a random mxp below their
+    column."""
+    if kind == "drift":
+        rows, cols = rng.integers(m - 40, m, b), rng.integers(n // 4, 3 * n // 4, b)
+    else:
+        rows, cols = rng.integers(0, m, b), rng.integers(0, n, b)
+    zeros = np.zeros(b, np.int64)
+    aux_sw = np.stack([rng.integers(0, 50, b), rows, cols, zeros], axis=1)
+    aux_nw = np.stack([cols, zeros, zeros, zeros], axis=1)
+    hsel = rng.integers(-50, 50, (b, n + 1))
+    mrp = np.where(rng.random(b) < 0.1, -1, rows)
+    mxp = np.where(rng.random(b) < 0.2, rng.integers(-1, n, b), n - 1)
+    return tuple(x.astype(np.int32) for x in (aux_sw, aux_nw, hsel, mrp, mxp))
+
+
+def dense_drift(records, start_r, start_f, rows: int = 96) -> tuple[int, int]:
+    """The largest move of a dense walk's cursor off the diagonal over
+    ``rows`` rows (the rows a stage is staged ahead of its walk), and the
+    walks that reached column -1."""
+    drift = reached = 0
+    for rec, r, fp in zip(records, start_r, start_f):
+        diag = {}
+        r, fp = int(r), int(fp)
+        while r >= 0 and fp >= 0 and rec[r] & 3:
+            diag[r] = fp - r
+            fp -= (int(rec[r]) >> 2) + (int(rec[r]) & 3 == 3)
+            r -= 1
+        reached += r >= 0 and fp < 0
+        drift = max([drift] + [abs(d - diag[r + rows]) for r, d in diag.items()
+                               if r + rows in diag])
+    return drift, reached
 
 
 def band_exits(records, start_r, start_f, offsets, band) -> tuple[int, int]:
@@ -2699,11 +2823,53 @@ def check_band_words(rng, dev, b, m, n, band, kind, stats) -> dict:
     return err
 
 
+def check_dense_words(rng, dev, b, m, n, kind, stats) -> dict:
+    """B7 and B8 against their plain versions, SW and NW, on words that no
+    fill writes, at rows wider than a staged window: ``kind`` "window"
+    (``random_dense_words`` from random start cells) or "drift"
+    (``drifting_dense_words`` walked from the last 40 rows, mid-row; raises
+    unless some LEFT run spans more than a window's columns, 128 linear and
+    64 Gotoh). ``stats`` (the wrapper's int64 (3,) counts) gets the
+    kernel's misses and rounds added."""
+    from versalignlib_tpu_torch.ops import cuda_walk
+
+    plain_dense, _ = _plain_walks()
+    err = {}
+    for affine in (False, True):
+        make = drifting_dense_words if kind == "drift" else random_dense_words
+        ptr = torch.from_numpy(make(rng, b, m, n, affine)).to(dev)
+        aux_sw, aux_nw, hsel, mrp, mxp = (torch.from_numpy(x).to(dev) for x in
+                                          dense_word_starts(rng, b, m, n, kind))
+        key = f"walk[{'affine' if affine else 'linear'}]"
+        longest = drift = reached = 0
+        before = stats.tolist()
+        for local, aux in ((True, aux_sw), (False, aux_nw)):
+            args = (ptr, aux, None if local else hsel, mrp, mxp, n, local, affine)
+            got = cuda_walk.walk(*args, stats=stats)
+            err[key] = max(err.get(key, 0), _compare_walk(
+                f"{key} {kind} words n {n} local {local}", got, plain_dense(*args)))
+            rec, sr, sf = (x.cpu().numpy() for x in got[:3])
+            longest = max(longest, int((rec >> 2).max()))
+            d, c = dense_drift(rec, sr, sf)
+            drift, reached = max(drift, d), reached + c
+        window = 64 if affine else 128
+        if kind == "drift" and longest <= window:
+            raise AssertionError(f"{key} n {n}: the longest LEFT run spans {longest} columns, "
+                                 f"within one staged window of {window}")
+        reissued, deep, _ = (x - y for x, y in zip(stats.tolist(), before))
+        log(f"[walk] walk.cu == plain  {key} {kind} words B={b} {m}x{n}, SW, NW: longest LEFT "
+            f"run {longest} columns, cursor {drift} columns off the diagonal over 96 rows, "
+            f"{reached} NW walks reached column -1; misses: {reissued} windows staged "
+            f"again, {deep} runs below a window")
+    return err
+
+
 def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
     """Every branch of B7-B10 against its plain version on the card: at the
     main path's shape (ALIGN_PAIRS x LENGTH x LENGTH, every parameter set,
     SW and NW, both flavors), at the edges (``WALK_EDGES``,
-    ``BANDED_WALK_EDGES``, ``WALK_RANDOM_WORDS``) and on BANDED_SLICE of
+    ``BANDED_WALK_EDGES``, ``WALK_RANDOM_WORDS``, ``DENSE_WALK_WORDS``;
+    each walk kernel must miss on the last two) and on BANDED_SLICE of
     the long pairs at band BAND (the banded models' branches: DNA linear SW
     and NW, BWA-MEM affine SW).
     Returns the max abs error per kernel name (0) and the plain banded
@@ -2754,6 +2920,17 @@ def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
                              "runs past a window on the window and drift words: both must occur")
     log(f"[walk] banded_walk.cu misses on the window and drift words: {reissued} cursors "
         f"left their window (the ring staged again), {deep} runs read words below it")
+    stats.zero_()
+    for b, m, n, kind in DENSE_WALK_WORDS:
+        for key, e in check_dense_words(rng, dev, b, m, n, kind, stats).items():
+            merge(key, e)
+    reissued, deep, _ = (int(x) for x in stats.tolist())
+    if not (reissued and deep):
+        raise AssertionError(f"walk.cu staged {reissued} windows again and read {deep} runs "
+                             "past a window on the dense window and drift words: both must "
+                             "occur")
+    log(f"[walk] walk.cu misses on the dense window and drift words: {reissued} cursors left "
+        f"their window (the ring staged again), {deep} runs read words below it")
     log(f"[walk] main shapes and edges: {time.perf_counter() - t0:.1f} s")
     reads, refs = pairs[0][:BANDED_SLICE], pairs[1][:BANDED_SLICE]
     plain_ms = {}
@@ -2777,29 +2954,29 @@ def phase_walk_vs_plain(rng, dev, pairs) -> tuple[dict, dict]:
 
 
 def walk_geometry(source: str, lines: list[str], pairs: int, sms: int) -> list[str]:
-    """A walk launch of ``pairs`` pairs: ``walk.cu`` a thread a pair, a warp
-    a block; ``banded_walk.cu`` a warp a pair, ``BANDED_WALK_WARPS`` a
-    block, with its ring in shared memory. Blocks, warps per SM, and each
-    instantiation's registers (and for the banded walk the blocks an SM
-    holds at once by its registers and shared memory)."""
-    from versalignlib_tpu_torch.ops.cuda_walk import BANDED_WALK_SMEM, BANDED_WALK_WARPS
+    """A walk launch of ``pairs`` pairs: a warp a pair, ``WALK_WARPS`` (or
+    ``BANDED_WALK_WARPS``) a block, with its ring in shared memory. Blocks,
+    warps per SM, and each instantiation's registers and the blocks an SM
+    holds at once by its registers and shared memory; raises unless the
+    shared memory a block is ``WALK_SMEM`` (``BANDED_WALK_SMEM``)."""
+    from versalignlib_tpu_torch.ops import cuda_walk
 
     if source == "walk.cu":
-        warps = -(-pairs // 32)
-        return [f"{pairs} pairs: {warps} blocks of 32 threads, {warps / sms:.2f} warps per SM "
-                f"on {sms} SMs"] + [line for line in lines if "registers" in line]
-    blocks = -(-pairs // BANDED_WALK_WARPS)
-    out = [f"{pairs} pairs: {blocks} blocks of {BANDED_WALK_WARPS} warps "
-           f"({BANDED_WALK_WARPS * 32} threads, {BANDED_WALK_SMEM} bytes of shared memory), "
-           f"{pairs / sms:.2f} warps per SM on {sms} SMs, {min(blocks, sms)} SMs busy"]
+        warps, smem_want = cuda_walk.WALK_WARPS, cuda_walk.WALK_SMEM
+    else:
+        warps, smem_want = cuda_walk.BANDED_WALK_WARPS, cuda_walk.BANDED_WALK_SMEM
+    blocks = -(-pairs // warps)
+    out = [f"{pairs} pairs: {blocks} blocks of {warps} warps ({warps * 32} threads, "
+           f"{smem_want} bytes of shared memory), {pairs / sms:.2f} warps per SM on {sms} SMs, "
+           f"{min(blocks, sms)} SMs busy"]
     for line in lines:
         regs = re.search(r": (\d+) registers", line)
         smem = re.search(r"(\d+) bytes smem", line)
         if regs:
-            if smem and int(smem.group(1)) != BANDED_WALK_SMEM:
-                raise AssertionError(f"banded_walk.cu holds {smem.group(1)} bytes of shared "
-                                     f"memory a block, not {BANDED_WALK_SMEM}: {line}")
-            out.append(f"{line}; {resident_blocks(int(regs.group(1)), BANDED_WALK_SMEM)} "
+            if smem and int(smem.group(1)) != smem_want:
+                raise AssertionError(f"{source} holds {smem.group(1)} bytes of shared memory a "
+                                     f"block, not {smem_want}: {line}")
+            out.append(f"{line}; {resident_blocks(int(regs.group(1)), smem_want)} "
                        "blocks resident per SM")
     return out
 
@@ -2812,50 +2989,86 @@ def walk_bound(b: int, m: int, visited: int, start_bytes: int) -> float:
     return 1e3 * (4 * b * m + 12 * b + 32 * visited + start_bytes) / HBM_BYTES_PER_S
 
 
-def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
-                     splits: dict) -> list[dict]:
-    """B7, B8 at ALIGN_PAIRS x LENGTH x LENGTH (DNA default, BWA-MEM
-    affine) and B9, B10 at BANDED_PAIRS x BANDED_LEN, band BAND, SW and
-    NW: the median of 7 with min and max, the plain version (dense: the
-    full shape, PLAIN_REPS; banded: the BANDED_SLICE slice), the bound from
-    this run's visited rows, and ms a row of the longest chain."""
-    from versalignlib_tpu_torch.ops import cuda_align, cuda_banded, cuda_walk
+def _dense_walk_times(dev, params, r_np, f_np, plain_reps) -> dict:
+    """B7 or B8 (by the parameters' gap model) on the words the fill kernel
+    writes for (B, m), (B, n) codes, SW and NW, canonical flavor: the
+    median of 7 with min and max, the plain version's median of
+    ``plain_reps``, the bound from this run's visited rows,
+    ns a row of the longest chain, and the kernel's misses and rounds."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_walk
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
     plain_dense, _ = _plain_walks()
+    tie = TieBreak.DIAG_UP_LEFT
+    (b, m), n = r_np.shape, f_np.shape[1]
+    r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+    f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+    mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+    mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
+    t = {}
+    for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
+        out = cuda_align.fill(r, f, mrp, params, alg, tie)
+        args = (*out, mrp, mxp, n, key == "sw", params.affine)
+        km = time_cuda(lambda: cuda_walk.walk(*args))
+        device_ms = time_device(lambda: cuda_walk.walk(*args))
+        pl = time_cuda(lambda: plain_dense(*args), reps=plain_reps)
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        rec, sr = cuda_walk.walk(*args, stats=stats)[:2]
+        visited, chain = _visited_rows(rec, sr)
+        reissued, deep, rounds = (int(x) for x in stats.tolist())
+        start_bytes = b * (16 if key == "sw" else 16 + 8 + 32)
+        bd = walk_bound(b, m, visited, start_bytes)
+        t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
+                  "device_ms": device_ms, "plain_ms": pl["median"], "bound_ms": bd,
+                  "visited_rows": visited, "longest_chain_rows": chain,
+                  "ns_per_chain_row": 1e6 * km["median"] / max(chain, 1),
+                  "windows_staged_again": reissued, "runs_below_window": deep,
+                  "rows_a_round": visited / max(rounds, 1)}
+        log(f"[times] walk.cu {'affine' if params.affine else 'linear'} {key} B={b} {m}x{n}: "
+            f"{km['median']:.4f} ms (min {km['min']:.4f}, max {km['max']:.4f}; the card alone "
+            f"{device_ms:.4f}); plain {pl['median']:.1f} ms; "
+            f"bound {bd:.4f} ms ({100 * bd / km['median']:.1f}%; bytes: {visited} rows "
+            f"visited); longest chain {chain} rows, {t[key]['ns_per_chain_row']:.1f} ns a row; "
+            f"misses {reissued} windows staged again, {deep} runs below a window "
+            f"({(reissued + deep) / max(visited, 1):.2e} a visited row); {rounds} rounds, "
+            f"{t[key]['rows_a_round']:.2f} rows a round")
+        del out, args
+    return t
+
+
+def phase_walk_times(dev, pairs, data, errs: dict, plain_ms: dict, launches: dict,
+                     splits: dict) -> list[dict]:
+    """B7, B8 at ALIGN_PAIRS x LENGTH x LENGTH (DNA default, BWA-MEM
+    affine) and at ``map_reads``' align shape (``search_align_pairs``,
+    rows wider than a staged window; under the ``map_reads`` key of each
+    entry), and B9, B10 at BANDED_PAIRS x BANDED_LEN, band BAND, SW and NW:
+    the median of 7 with min and max (wrapper included) and of the card's
+    work alone (``time_device``), the plain version (dense: the full shape,
+    PLAIN_REPS; banded: the BANDED_SLICE slice), the bound from this run's
+    visited rows, ms a row of the longest chain, and each kernel's misses
+    and rows a round."""
+    from versalignlib_tpu_torch.ops import cuda_align, cuda_banded, cuda_walk
+    from versalignlib_tpu_torch.types import Algorithm, TieBreak
+
     sets = _param_sets()
     tie = TieBreak.DIAG_UP_LEFT
     rng = np.random.default_rng(11)
+    align_pairs = search_align_pairs(data)
     entries = []
     for name, replaces in (("dna_default", "versalignlib_tpu/ops/walk.py:78"),
                            ("dna_affine_bwamem", "versalignlib_tpu/ops/walk.py:162")):
         params = sets[name]
         b, m, n = ALIGN_PAIRS, LENGTH, LENGTH
         r_np, f_np = codes_for(params, rng, b, m), codes_for(params, rng, b, n)
-        r, f = torch.from_numpy(r_np).to(dev), torch.from_numpy(f_np).to(dev)
-        mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
-        mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
-        t = {}
-        for alg, key in ((Algorithm.SMITH_WATERMAN, "sw"), (Algorithm.NEEDLEMAN_WUNSCH, "nw")):
-            out = cuda_align.fill(r, f, mrp, params, alg, tie)
-            args = (*out, mrp, mxp, n, key == "sw", params.affine)
-            km = time_cuda(lambda: cuda_walk.walk(*args))
-            pl = time_cuda(lambda: plain_dense(*args), reps=PLAIN_REPS)
-            rec, sr = cuda_walk.walk(*args)[:2]
-            visited, chain = _visited_rows(rec, sr)
-            start_bytes = b * (16 if key == "sw" else 16 + 8 + 32)
-            bd = walk_bound(b, m, visited, start_bytes)
-            t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
-                      "plain_ms": pl["median"], "bound_ms": bd, "visited_rows": visited,
-                      "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain}
-            log(f"[times] walk.cu {name} {key} B={b} {m}x{n}: {km['median']:.3f} ms (min "
-                f"{km['min']:.3f}, max {km['max']:.3f}); plain {pl['median']:.1f} ms; bound "
-                f"{bd:.4f} ms (bytes: {visited} rows visited); longest chain {chain} rows, "
-                f"{t[key]['ns_per_chain_row']:.0f} ns a row")
+        t = _dense_walk_times(dev, params, r_np, f_np, PLAIN_REPS)
         kind = "affine" if params.affine else "linear"
-        entries.append(_walk_entry(f"walk[{kind}]", name, "versalignlib_tpu_torch/csrc/walk.cu",
-                                   replaces, launches[name], errs[f"walk[{kind}]"], (b, m, n), t,
-                                   splits.get(name)))
+        entry = _walk_entry(f"walk[{kind}]", name, "versalignlib_tpu_torch/csrc/walk.cu",
+                            replaces, launches[name], errs[f"walk[{kind}]"], (b, m, n), t,
+                            splits.get(name))
+        _, r_np, f_np = align_pairs[f"map_reads,{name}"]
+        entry["map_reads"] = {"shape": [*r_np.shape, f_np.shape[1]],
+                              **_dense_walk_times(dev, params, r_np, f_np, PLAIN_REPS)}
+        entries.append(entry)
     reads, refs = pairs
     for name, replaces in (("dna_default", "versalignlib_tpu/ops/walk.py:324"),
                            ("dna_affine_bwamem", "versalignlib_tpu/ops/walk.py:413")):
@@ -2870,6 +3083,7 @@ def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
             out = cuda_banded.fill(r, f, offs, mrp, params, alg, tie, BAND)
             args = (*out, mrp, mxp, offs, n, BAND, key == "sw", params.affine)
             km = time_cuda(lambda: cuda_walk.banded_walk(*args))
+            device_ms = time_device(lambda: cuda_walk.banded_walk(*args))
             stats = torch.zeros(3, dtype=torch.int64, device=dev)
             rec, sr = cuda_walk.banded_walk(*args, stats=stats)[:2]
             visited, chain = _visited_rows(rec, sr)
@@ -2878,12 +3092,14 @@ def phase_walk_times(dev, pairs, errs: dict, plain_ms: dict, launches: dict,
             bd = walk_bound(b, m, visited, start_bytes)
             pl = plain_ms[name].get(key)
             t[key] = {"ms": km["median"], "ms_min": km["min"], "ms_max": km["max"],
-                      "plain_ms": pl, "bound_ms": bd, "visited_rows": visited,
+                      "device_ms": device_ms, "plain_ms": pl, "bound_ms": bd,
+                      "visited_rows": visited,
                       "longest_chain_rows": chain, "ns_per_chain_row": 1e6 * km["median"] / chain,
                       "windows_staged_again": reissued, "runs_below_window": deep,
                       "rows_a_round": visited / rounds}
             log(f"[times] banded_walk.cu {name} {key} B={b} {m}x{n} band {BAND}: "
-                f"{km['median']:.3f} ms (min {km['min']:.3f}, max {km['max']:.3f}); plain "
+                f"{km['median']:.3f} ms (min {km['min']:.3f}, max {km['max']:.3f}; the card "
+                f"alone {device_ms:.3f}); plain "
                 f"{'not run' if pl is None else f'{pl:.1f} ms'} on {BANDED_SLICE} pairs; "
                 f"bound {bd:.4f} ms ({100 * bd / km['median']:.1f}%; bytes: {visited} rows "
                 f"visited); longest chain {chain} rows, {t[key]['ns_per_chain_row']:.1f} ns a "
@@ -2914,8 +3130,12 @@ def _walk_entry(name, params_name, source, replaces, launches, err, shape, t, sp
         "ms": sw["ms"], "plain_ms": sw["plain_ms"], "bound_ms": sw["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "params": params_name, "shape": list(shape), "algorithm": "SW",
-        "ms_min": sw["ms_min"], "ms_max": sw["ms_max"], "visited_rows": sw["visited_rows"],
-        "longest_chain_rows": sw["longest_chain_rows"], "nw": nw, "matches_plain": True,
+        "ms_min": sw["ms_min"], "ms_max": sw["ms_max"], "device_ms": sw["device_ms"],
+        "visited_rows": sw["visited_rows"],
+        "longest_chain_rows": sw["longest_chain_rows"],
+        **{k: sw[k] for k in ("windows_staged_again", "runs_below_window", "rows_a_round")
+           if k in sw},
+        "nw": nw, "matches_plain": True,
         "split": split,
     }
 
@@ -4042,7 +4262,7 @@ def main() -> int:
     launches["banded:dna_default"] += longreads["walk_launches"]
     splits["banded:dna_default"].update(map_long_reads=longreads["split"],
                                         long_round=long_round)
-    kernels += phase_walk_times(dev, pairs, walk_errs, walk_plain, launches, splits)
+    kernels += phase_walk_times(dev, pairs, data, walk_errs, walk_plain, launches, splits)
     log(f"[phase] walk times: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_cli(edge_rng(args.seed, 12))

@@ -24,11 +24,12 @@ the banded models' launch (1024 pairs of 16 kbp, band 512) under the four
 parameter sets, SW and NW (the fill in the canonical flavor). The walks
 (``walk.cu``, ``banded_walk.cu``) run through each side's own
 ``ops/cuda_walk.py`` on the words this checkout's fills write: the dense
-walk at 4096 pairs of 512 x 512, the banded walk at the banded models'
-launch, each under the default DNA and BWA-MEM affine sets, SW and NW
-(canonical flavor). Each round times every side once (CUDA-event median of 7
-after a warm-up, wrapper included), the order reversed every other round,
-and every side's outputs must equal the first side's. Prints one line per
+walk at 4096 pairs of 512 x 512 and at ``map_reads``' align shape (2048 x
+150 x 1536), the banded walk at the banded models' launch, each under the
+default DNA and BWA-MEM affine sets, SW and NW (canonical flavor). Each
+round times every side once (CUDA-event median of 7 after a warm-up,
+wrapper included), the order reversed every other round, and every side's
+outputs must equal the first side's. Prints one line per
 case: each side's median over the rounds and its quartiles, and in how
 many rounds the last side beat the first. Needs a CUDA card and nvcc.
 """
@@ -112,7 +113,7 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH),
               cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH), tuple(TieBreak))
              for pname, params in sets.items() if cs._fill_source(params) in sources]
-    if "search.cu" in sources or set(FILLS) & set(sources):
+    if "search.cu" in sources or set(FILLS + ("walk.cu",)) & set(sources):
         data = cs.make_search_data(rng)
     if "search.cu" in sources:
         for name, (params, queries, pool, kind) in cs.search_launches(data).items():
@@ -134,7 +135,8 @@ def cases(dev, sources, wrappers) -> list[tuple[str, str, object]]:
     if set(BANDED) & set(sources):
         out += banded_cases(dev, sources, wrappers, rng)
     if set(WALKS) & set(sources):
-        out += walk_cases(dev, sources, wrappers, rng)
+        out += walk_cases(dev, sources, wrappers, rng,
+                          cs.search_align_pairs(data) if "walk.cu" in sources else {})
     for label, params, r_np, f_np, ties in fills:
         source = cs._fill_source(params)
         if source not in sources:
@@ -183,11 +185,13 @@ def banded_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
     return out
 
 
-def walk_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
+def walk_cases(dev, sources, wrappers, rng, align_pairs) -> list[tuple[str, str, object]]:
     """The walks on the words this checkout's fills write (the package's
     own ``cuda_align.fill`` and ``cuda_banded.fill``): ``walk.cu`` at 4096
-    pairs of 512 x 512, ``banded_walk.cu`` at 1024 HiFi-like pairs of 16 kbp,
-    band 512, under the default DNA and BWA-MEM affine sets, SW and NW."""
+    pairs of 512 x 512 and on ``map_reads``' align pairs (``align_pairs``,
+    ``chip_smoke.search_align_pairs``), ``banded_walk.cu`` at 1024 HiFi-like
+    pairs of 16 kbp, band 512, under the default DNA and BWA-MEM affine
+    sets, SW and NW."""
     from versalignlib_tpu_torch.ops import cuda_align, cuda_banded
 
     sets = cs._param_sets()
@@ -199,17 +203,20 @@ def walk_cases(dev, sources, wrappers, rng) -> list[tuple[str, str, object]]:
     for pname in ("dna_default", "dna_affine_bwamem"):
         params = sets[pname]
         if "walk.cu" in sources:
-            r_np = cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH)
-            f_np = cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH)
-            r, f = torch.from_numpy(r_np).to(dev), torch.from_numpy(f_np).to(dev)
-            mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
-            mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
-            for alg in Algorithm:
-                args = (*cuda_align.fill(r, f, mrp, params, alg, tie), mrp, mxp, cs.LENGTH,
-                        alg == Algorithm.SMITH_WATERMAN, params.affine)
-                out.append((f"walk.cu {pname} {cs.ALIGN_PAIRS}x{cs.LENGTH}x{cs.LENGTH} "
-                            f"{alg.name}", "walk.cu",
-                            lambda i, a=args: wrappers[i]["cuda_walk"].walk(*a)))
+            shapes = [(cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH),
+                       cs.codes_for(params, rng, cs.ALIGN_PAIRS, cs.LENGTH))]
+            shapes.append(align_pairs[f"map_reads,{pname}"][1:])
+            for r_np, f_np in shapes:
+                (b, m), n = r_np.shape, f_np.shape[1]
+                r = torch.from_numpy(np.ascontiguousarray(r_np)).to(dev)
+                f = torch.from_numpy(np.ascontiguousarray(f_np)).to(dev)
+                mrp = torch.from_numpy(cuda_align.last_valid_pos(r_np, tie, params.matrix)).to(dev)
+                mxp = torch.from_numpy(cuda_align.last_valid_pos(f_np, tie, params.matrix)).to(dev)
+                for alg in Algorithm:
+                    args = (*cuda_align.fill(r, f, mrp, params, alg, tie), mrp, mxp, n,
+                            alg == Algorithm.SMITH_WATERMAN, params.affine)
+                    out.append((f"walk.cu {pname} {b}x{m}x{n} {alg.name}", "walk.cu",
+                                lambda i, a=args: wrappers[i]["cuda_walk"].walk(*a)))
         if "banded_walk.cu" in sources:
             r, f, offs = cs._banded_inputs(reads, refs, cs.BAND, None, dev)
             mrp = torch.from_numpy(cuda_align.last_valid_pos(reads, tie, params.matrix)).to(dev)

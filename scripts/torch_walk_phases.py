@@ -7,9 +7,10 @@ words they walk (csrc/align.cu, csrc/align_affine.cu, csrc/banded_align.cu),
 prints each walk instantiation's registers and launch geometry, then runs
 chip_smoke's walk phases on the data they are given there: every B7-B10
 branch against its plain version (``phase_walk_vs_plain``: the main
-shapes, the edges, the banded walk's window and miss cases, 32 of the
-16 kbp pairs) and their times (``phase_walk_times``, launch counts 0: no
-entry point runs here). Prints the same log lines and a
+shapes, the edges, the window and miss cases of both walks, 32 of the
+16 kbp pairs) and their times (``phase_walk_times``: the main shapes and
+``map_reads``' align shape, with misses and rows a round; launch counts 0:
+no entry point runs here). Prints the same log lines and a
 ``{"kernels": [...]}`` line with the four walk entries. About two minutes
 with the builds: the quick check after an edit of a walk.
 """
@@ -51,12 +52,12 @@ def main() -> int:
             cs.log(f"[build] {src} launch: {line}")
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
-    genome = cs.make_genome(rng)[1]
-    pairs = cs.make_banded_pairs(rng, genome)
+    data = cs.make_search_data(rng)
+    pairs = cs.make_banded_pairs(rng, data["map_to_reference"][1])
     errs, plain_ms = cs.phase_walk_vs_plain(cs.edge_rng(args.seed, 10), dev, pairs)
     launches = {k: 0 for k in ("dna_default", "dna_affine_bwamem", "banded:dna_default",
                                "banded:dna_affine_bwamem")}
-    entries = cs.phase_walk_times(dev, pairs, errs, plain_ms, launches, {})
+    entries = cs.phase_walk_times(dev, pairs, data, errs, plain_ms, launches, {})
     cs.log(f"[phase] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     return 0

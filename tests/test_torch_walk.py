@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_exits, drifting_band_words, random_band_words
+from chip_smoke import (band_exits, dense_drift, dense_word_starts, drifting_band_words,
+                        drifting_dense_words, random_band_words, random_dense_words)
 from tests.conftest import random_codes
 from versalignlib_tpu.ops import walk as jax_walk
 from versalignlib_tpu_torch import AlignmentEngine, AlignmentParameters, alphabet
@@ -45,6 +46,18 @@ _BANDED_SHAPE = (16, 40, 52)
 
 _FIELDS = ("read", "ref", "score", "cigar", "read_start", "read_end",
            "ref_start", "ref_end", "buffer_start", "buffer_end")
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for a test whose plain walks run a few small
+    tensor operations a row, 600 rows deep, so that they do not contend
+    with the test workers beside them (on all cores they ran 20-100x
+    slower in a full parallel run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _fields(a):
@@ -163,6 +176,68 @@ def test_dense_walk_matches_jax(gap, alg, tie):
 def test_dense_walk_matches_jax_blosum62():
     reads, refs = _dense_pairs(np.random.default_rng(100), *_DENSE_SHAPE, BLOSUM62)
     _dense_case(reads, refs, BLOSUM62, Algorithm.SMITH_WATERMAN, TieBreak.DIAG_UP_LEFT)
+
+
+#: Dense rows wider than the window csrc/walk.cu stages a row (8 words:
+#: 128 columns linear, 64 Gotoh): n 600 linear (38 words), n 420 Gotoh
+#: (53 words).
+_WIDE_N = {"linear": 600, "affine": 420}
+
+
+@pytest.mark.parametrize("alg", list(Algorithm))
+@pytest.mark.parametrize("gap", list(_GAPS))
+@pytest.mark.parametrize("kind", ["window", "drift"])
+def test_dense_walk_on_window_words_matches_jax(kind, gap, alg):
+    """Dense rows wider than a staged window: random words from random
+    start cells, and the words of ``chip_smoke.drifting_dense_words`` (UP
+    runs and F chains off the diagonal, LEFT runs and E chains across words
+    and past a window's columns, rows LEFT across the whole row, NW walks to
+    column -1) walked from the last rows, mid-row. The card holds the
+    kernel's windows and misses to the plain walk on such words
+    (``chip_smoke.check_dense_words``)."""
+    b, m, n = 16, 160, _WIDE_N[gap]
+    affine = gap == "affine"
+    local = alg == Algorithm.SMITH_WATERMAN
+    rng = np.random.default_rng(200 + 2 * int(alg) + affine + 4 * (kind == "drift"))
+    make = drifting_dense_words if kind == "drift" else random_dense_words
+    ptr = torch.from_numpy(make(rng, b, m, n, affine))
+    aux_sw, aux_nw, hsel, mrp, mxp = dense_word_starts(rng, b, m, n, kind)
+    aux, hsel = (aux_sw, None) if local else (aux_nw, hsel)
+    records, *starts = (walks.walk_dense_affine if affine else walks.walk_dense)(
+        ptr, torch.from_numpy(aux), None if hsel is None else torch.from_numpy(hsel),
+        torch.from_numpy(mrp), torch.from_numpy(mxp), n, local)
+    jax_fn = jax_walk.walk_blocks_affine if affine else jax_walk.walk_blocks
+    want = jax_fn(_block(ptr.numpy()), _block(aux), None if hsel is None else _block(hsel),
+                  _block(mrp, -1), _block(mxp, -1), m=m, n=n, pack=8 if affine else 16,
+                  local=local)
+    np.testing.assert_array_equal(records.numpy(), _unblock(want[0], b))
+    for got, w in zip(starts, want[1:]):
+        np.testing.assert_array_equal(got.numpy(), _unblock(w, b))
+    assert (records.numpy() != 0).any()
+
+
+@pytest.mark.parametrize("n", [1500, 900])
+def test_drifting_dense_words_leave_a_staged_window(n, one_thread):
+    """On ``drifting_dense_words`` (64 pairs of 600 rows, as chip_smoke
+    walks them) the plain walks cross more than the columns a staged
+    window holds (128 linear, 64 Gotoh): LEFT runs past them, and cursors
+    that move off the diagonal by more than that over 96 rows (the rows a
+    stage is staged ahead of its walk); and some NW walks reach column -1
+    with rows left, which the kernel writes UP without their words."""
+    b, m = 64, 600
+    rng = np.random.default_rng(n)
+    for affine in (False, True):
+        window = 64 if affine else 128
+        ptr = torch.from_numpy(drifting_dense_words(rng, b, m, n, affine))
+        aux_sw, aux_nw, hsel, mrp, mxp = (torch.from_numpy(x) for x in
+                                          dense_word_starts(rng, b, m, n, "drift"))
+        walk = walks.walk_dense_affine if affine else walks.walk_dense
+        records, start_r, start_f, _ = walk(ptr, aux_sw, None, mrp, mxp, n, True)
+        assert (records.numpy() >> 2).max() > window
+        drift, _ = dense_drift(records.numpy(), start_r.numpy(), start_f.numpy())
+        assert drift > window, drift
+        records, start_r, start_f, _ = walk(ptr, aux_nw, hsel, mrp, mxp, n, False)
+        assert dense_drift(records.numpy(), start_r.numpy(), start_f.numpy())[1] > 0
 
 
 @pytest.mark.parametrize("tie", list(TieBreak))
@@ -295,7 +370,7 @@ def test_banded_walk_on_window_words_matches_jax(kind, band, gap, alg):
 
 
 @pytest.mark.parametrize("band", [333, 512])
-def test_drifting_words_leave_a_staged_window(band):
+def test_drifting_words_leave_a_staged_window(band, one_thread):
     """On ``drifting_band_words`` (64 pairs, as chip_smoke walks them) the
     plain walks cross more than the 128 fields a staged window holds: LEFT
     runs past 128 fields, and cursors whose band field moves by more than
@@ -419,13 +494,22 @@ def test_wrappers_take_the_plain_walk_on_the_cpu():
         cuda_walk.walk(out[0], out[1], None, mrp, mxp, 17, False, False)
     with pytest.raises(ValueError):
         cuda_walk.walk(*out, mrp, mxp, 17, False, True)  # 16 codes a word, not 8
+    # ``stats`` counts the kernel's misses and rounds; the plain walk has
+    # none and leaves it as it is.
+    stats = torch.full((3,), 7, dtype=torch.int64)
+    got = cuda_walk.walk(*out, mrp, mxp, 17, False, False, stats=stats)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert stats.tolist() == [7, 7, 7]
     offsets = band_offsets(12, 12, 17, 6)
     out = plain_banded.banded_fill(r, f, offsets, mrp, AFFINE, Algorithm.SMITH_WATERMAN,
                                    TieBreak.DIAG_UP_LEFT, 6)
-    got = cuda_walk.banded_walk(*out, mrp, mxp, offsets, 17, 6, True, True)
     want = walks.walk_banded_affine(*out, mrp, mxp, torch.from_numpy(offsets), 17, 6, True)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for kw in ({}, {"stats": stats}):
+        got = cuda_walk.banded_walk(*out, mrp, mxp, offsets, 17, 6, True, True, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert stats.tolist() == [7, 7, 7]
     with pytest.raises(ValueError):
         cuda_walk.banded_walk(*out, mrp, mxp, offsets[:-1], 17, 6, True, True)
     assert (cuda_walk.WALK_KERNEL.launches, cuda_walk.BANDED_WALK_KERNEL.launches) == before

@@ -23,15 +23,19 @@ from versalignlib_tpu_torch.ops._build import CudaKernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: The dense walk (B7, B8); ``WALK_KERNEL.launches`` counts its launches.
-WALK_KERNEL = CudaKernel("walk.cu", "val_walk_launch", [_P] * 7 + [_I] * 6 + [_P])
+WALK_KERNEL = CudaKernel("walk.cu", "val_walk_launch", [_P] * 8 + [_I] * 6 + [_P])
+#: Warps (pairs) a block of the dense walk, and the shared memory a block
+#: holds: a ring of 4 stages of 32 rows a warp, 8 staged words a row at a
+#: pitch of 12, and one int (first staged word) a row (csrc/walk.cuh).
+WALK_WARPS = 4
+WALK_SMEM = WALK_WARPS * 4 * 32 * (12 + 1) * 4
 
 #: The banded walk (B9, B10), with its own launch count.
 BANDED_WALK_KERNEL = CudaKernel(
     "banded_walk.cu", "val_banded_walk_launch", [_P] * 9 + [_I] * 7 + [_P])
 #: Warps (pairs) a block of the banded walk, and the shared memory a block
-#: holds: a ring of 4 stages of 32 rows a warp, 8 staged words a row at a
-#: pitch of 12, and two ints (band start, first staged word) a row
-#: (csrc/banded_walk.cu).
+#: holds: the dense walk's ring and one more int (band start) a row
+#: (csrc/walk.cuh).
 BANDED_WALK_WARPS = 4
 BANDED_WALK_SMEM = BANDED_WALK_WARPS * 4 * 32 * (12 + 2) * 4
 
@@ -61,12 +65,19 @@ def _outputs(b: int, m: int, dev: torch.device):
     return records, ends
 
 
+def _check_stats(stats: torch.Tensor | None, dev: torch.device) -> None:
+    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
+                              or stats.shape != (3,)):
+        raise ValueError("stats must be an int64 (3,) tensor on the walk's device")
+
+
 def walk(ptr: torch.Tensor, aux: torch.Tensor, hsel: torch.Tensor | None,
-         mrp: torch.Tensor, mxp: torch.Tensor, n: int, local: bool, affine: bool):
+         mrp: torch.Tensor, mxp: torch.Tensor, n: int, local: bool, affine: bool,
+         stats: torch.Tensor | None = None):
     """Dense walk over a fill's ptr (B, m, ceil(n/16)) of 2-bit codes, or
     with ``affine`` (B, m, ceil(n/8)) of 4-bit Gotoh codes, its aux (B, 4)
     and (NW) hsel (B, n+1); mrp and mxp (B,) are each pair's last valid read
-    row and ref column (NW only)."""
+    row and ref column (NW only). ``stats`` as for :func:`banded_walk`."""
     b, m, nc = ptr.shape
     if nc != -(-n // (8 if affine else 16)) or aux.shape != (b, 4):
         raise ValueError(f"walk inputs {tuple(ptr.shape)}, {tuple(aux.shape)} do not fit "
@@ -80,12 +91,13 @@ def walk(ptr: torch.Tensor, aux: torch.Tensor, hsel: torch.Tensor | None,
     records, ends = _outputs(b, m, dev)
     if b == 0:
         return records, ends[0], ends[1], ends[2]
+    _check_stats(stats, dev)
     ptr, aux, hsel = (None if x is None else x.contiguous() for x in (ptr, aux, hsel))
     mrp, mxp = _ints(mrp, mxp)
     WALK_KERNEL.launch(
         ptr.data_ptr(), aux.data_ptr(), _addr(hsel), _addr(mrp), _addr(mxp),
-        records.data_ptr(), ends.data_ptr(), b, m, n, nc, int(local), int(affine),
-        torch.cuda.current_stream(dev).cuda_stream)
+        records.data_ptr(), ends.data_ptr(), _addr(stats), b, m, n, nc, int(local),
+        int(affine), torch.cuda.current_stream(dev).cuda_stream)
     return records, ends[0], ends[1], ends[2]
 
 
@@ -118,9 +130,7 @@ def banded_walk(ptr: torch.Tensor, best: torch.Tensor | None, keep: torch.Tensor
     records, ends = _outputs(b, m, dev)
     if b == 0:
         return records, ends[0], ends[1], ends[2]
-    if stats is not None and (stats.device != dev or stats.dtype != torch.int64
-                              or stats.shape != (3,)):
-        raise ValueError("stats must be an int64 (3,) tensor on the walk's device")
+    _check_stats(stats, dev)
     ptr, best, keep = (None if x is None else x.contiguous() for x in (ptr, best, keep))
     mrp, mxp = _ints(mrp, mxp)
     BANDED_WALK_KERNEL.launch(

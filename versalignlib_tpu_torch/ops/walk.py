@@ -14,8 +14,8 @@ vectorised over pairs, as the JAX walks do, on whatever device their
 tensors lie on; they unpack each row's codes into one field per column and
 take the LEFT run's end as the highest stop field at or below the cursor.
 ``csrc/walk.cu`` and ``csrc/banded_walk.cu`` are the card's kernels
-(wrappers in ``ops/cuda_walk.py``), which follow one pair per thread and
-one pair per warp.
+(wrappers in ``ops/cuda_walk.py``), which each follow one pair per warp
+(``csrc/walk.cuh``).
 
 Inputs are the fills' outputs as the port lays them out: dense pointer
 words (B, m, ceil(n/16)) of 2-bit codes or (B, m, ceil(n/8)) of 4-bit
