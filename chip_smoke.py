@@ -1815,7 +1815,7 @@ def phase_search_times(dev, data, paths: dict, errs: dict, fills: dict) -> list[
 #: the plain versions at full length, BANDED_CHECK checked field by field.
 BANDED_ODD = (256, 1500, 1800, 333)
 BANDED_PAIRS, BANDED_LEN, BAND, BAND_TILE = 1024, 16000, 512, 256
-BANDED_SLICE, BANDED_CHECK = 32, 16
+BANDED_SLICE, BANDED_CHECK = 8, 16
 #: map_long_reads: LONG_READS HiFi-like reads of LONG_MIN..LONG_MAX bp
 #: planted on both strands of the GENOME_LEN reference, and LONG_JUNK random
 #: reads of JUNK_LEN bp; a read maps within LONG_SLACK bp of its origin.
@@ -3695,6 +3695,7 @@ EXAMPLE_KERNELS = {
     "02_panel_search.py": ("search", "align", "walk"),
     "03_reference_mapping.py": ("search", "align", "walk"),
     "04_banded_long_pairs.py": ("banded_align", "banded_walk"),
+    "05_multichip.py": ("score", "align", "walk"),
     "06_serving.py": ("score", "align", "walk", "search"),
     "07_protein_and_stats.py": ("score", "align", "walk"),
     "08_pssm_motif_scan.py": ("search",),
@@ -4116,6 +4117,307 @@ def phase_bulk(rng, dev) -> dict:
     return out
 
 
+#: The mesh phase: the multi-process script's pairs (of LENGTH x LENGTH),
+#: and the chunks of its ``torch_bulk_align`` run (of BULK_CHUNK pairs).
+MULTIHOST_PAIRS, MESH_BULK_CHUNKS = 4096, 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _in_turns(single, mesh) -> dict:
+    """Walls (host clock, synchronised) of ``single`` and ``mesh`` in turns
+    (single, mesh, mesh, single, twice), after one call of each off the
+    clock: medians of 4."""
+    walls = {"single": [], "mesh": []}
+    for name in ("single", "mesh", "mesh", "single") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (single if name == "single" else mesh)()
+        torch.cuda.synchronize()
+        walls[name].append(1e3 * (time.perf_counter() - t0))
+    out = {f"{k}_ms": statistics.median(v) for k, v in walls.items()}
+    out["overhead_ms"] = out["mesh_ms"] - out["single_ms"]
+    return out
+
+
+def _by_entry(label: str, launches: dict, names: dict) -> dict:
+    """Launch counts by the ``kernels`` line entry of the branch each kernel
+    ran: ``names`` maps a kernel of ``_all_kernels`` to its entry's name;
+    a kernel launched outside ``names`` fails."""
+    stray = [k for k, v in launches.items() if v and k not in names]
+    if stray:
+        raise AssertionError(f"{label} launched {stray}, outside its path: {launches}")
+    return {names[k]: v for k, v in launches.items() if v}
+
+
+def _mesh_item(label: str, single, mesh, names: dict, same) -> tuple[dict, dict]:
+    """One mesh entry point: ``single()`` (the call without a mesh) once,
+    then ``mesh()`` once with every launch count set to 0 just before and
+    read just after (each kernel of ``names`` launched, and no other),
+    ``same(got, want)`` true, then both timed in turns. Returns (launches
+    by kernels-line entry, ``_by_entry``, and walls)."""
+    want = single()
+    kernels = _zero_launches()
+    got = mesh()
+    torch.cuda.synchronize()
+    launches = _by_entry(label, _require_launches(f"{label} on the mesh", kernels, names),
+                         names)
+    if not same(got, want):
+        raise AssertionError(f"{label}: the mesh's result differs from the call without one")
+    walls = _in_turns(single, mesh)
+    log(f"[parallel] {label}: == without the mesh; launches {json.dumps(launches)}; wall "
+        f"{walls['mesh_ms']:.3f} ms on the mesh, {walls['single_ms']:.3f} ms without "
+        f"(sharding overhead {walls['overhead_ms']:.3f} ms)")
+    return launches, walls
+
+
+def _same_hits(fields):
+    def same(got, want):
+        return all(np.array_equal(getattr(got, f), getattr(want, f)) for f in fields) \
+            and got.alignments == want.alignments
+    return same
+
+
+def _run_multihost(root: pathlib.Path, outdir: str, nproc: int, extra: list) -> tuple:
+    """``scripts/torch_multihost_align.py`` as ``nproc`` processes on the
+    card through EXAMPLE_RUNNER (``jax`` blocked, launch counts on standard
+    error), meeting at a TCP store on localhost; (wall s, launch counts of
+    each process, each of score, align and walk at least once)."""
+    script = ROOT / "scripts" / "torch_multihost_align.py"
+    port = _free_port()
+    args = ["--reads", str(root / "reads.fa"), "--refs", str(root / "refs.fa"), "--outdir",
+            str(root / outdir), "--coordinator", f"localhost:{port}", "--num-processes",
+            str(nproc), *extra]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, str(script), *args,
+                               "--process-id", str(i)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for i in range(nproc)]
+    try:
+        done = [subprocess.CompletedProcess(p.args, 0, *p.communicate(timeout=240))
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for p, d in zip(procs, done):
+        if p.returncode != 0:
+            raise AssertionError(f"torch_multihost_align.py ({nproc} processes, {extra}) "
+                                 f"exited {p.returncode}: {d.stderr[-2000:]}")
+    launches = [example_launches(d) for d in done]
+    for i, counts in enumerate(launches):
+        missing = [k for k in ("score", "align", "walk") if counts[k] < 1]
+        if missing:
+            raise AssertionError(f"torch_multihost_align.py process {i} of {nproc} never "
+                                 f"launched {missing}: {counts}")
+    return wall, launches
+
+
+def phase_parallel(rng, dev, data) -> dict:
+    """The multi-device layer on ``make_mesh()``, every card of the machine.
+    Each item runs once without a mesh and once on it, the launch counts set
+    to 0 just before the mesh call and read just after, the results ``==``;
+    then both walls in turns (the sharding overhead, which is all one card
+    can measure): ``AlignmentEngine(mesh=)`` scores (SCORE_PAIRS) and aligns
+    (ALIGN_PAIRS) of LENGTH x LENGTH, DNA default and BWA-MEM affine, SW and
+    NW; ``map_reads`` under both ``panel_axis`` values, ``map_to_reference``
+    with ``panel_axis="panel"``, ``translated_search`` at their search
+    shapes. Then an NCCL group at world size 1 in process:
+    ``multihost_score_batch`` / ``multihost_align_batch`` on MULTIHOST_PAIRS
+    pairs == the engine, the ``all_gather``'s time by the host clock
+    (synchronised); ``scripts/torch_multihost_align.py`` as one NCCL process
+    and as two processes sharing the card over gloo, its files == the
+    engine's through the CLI writers; ``torch_bulk_align``'s staged score
+    loop, which shards every chunk over ``make_mesh()``, == the engine
+    without a mesh, one launch a shard a chunk; ``prefetch_to_device(mesh=)``'s
+    shards on their cards. Returns each item's launch counts by the
+    ``kernels`` line entry of the branch they ran (a script's summed over
+    its processes)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from versalignlib_tpu_torch import (AlignmentEngine, map_reads, map_to_reference,
+                                        translated_search)
+    from versalignlib_tpu_torch.cli import _write_alignments, _write_scores
+    from versalignlib_tpu_torch.io.fasta import write_fasta
+    from versalignlib_tpu_torch.io.staging import prefetch_to_device
+    from versalignlib_tpu_torch.parallel import make_mesh, multihost
+    from versalignlib_tpu_torch.parallel.distributed import shard_rows
+    from versalignlib_tpu_torch.translate import TRANSLATED_PARAMETERS
+    from versalignlib_tpu_torch.types import Algorithm
+
+    smi = nvidia_smi_line()
+    mesh = make_mesh()
+    if mesh.devices != tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count())):
+        raise AssertionError(f"make_mesh() is not every card: {mesh.devices}")
+    launches, walls = {}, {}
+
+    def item(label, single, on_mesh, names, same):
+        launches[label], walls[label] = _mesh_item(label, single, on_mesh, names, same)
+
+    sets = _param_sets()
+    dna = sets["dna_default"]
+    #: The kernels-line entries of the DNA default path: the fill and the
+    #: walk, and with them the scores.
+    dna_fill = {"align": _kernel_name("align", dna), "walk": "walk[linear]"}
+    dna_names = {"score": _kernel_name("score", dna), **dna_fill}
+    for pname in ("dna_default", "dna_affine_bwamem"):
+        params = sets[pname]
+        fill = "align_affine" if params.affine else "align"
+        walk = "walk[affine]" if params.affine else "walk[linear]"
+        one, sharded = AlignmentEngine(params), AlignmentEngine(params, mesh=mesh)
+        score_r, score_f = (codes_for(params, rng, SCORE_PAIRS, LENGTH) for _ in range(2))
+        align_r, align_f = (codes_for(params, rng, ALIGN_PAIRS, LENGTH) for _ in range(2))
+        for alg in Algorithm:
+            item(f"score_alignments {pname} {alg.name}",
+                 lambda: one.score_alignments(alg, score_r, score_f),
+                 lambda: sharded.score_alignments(alg, score_r, score_f),
+                 {"score": _kernel_name("score", params)}, np.array_equal)
+            item(f"compute_alignments {pname} {alg.name}",
+                 lambda: one.compute_alignments(alg, align_r, align_f),
+                 lambda: sharded.compute_alignments(alg, align_r, align_f),
+                 {fill: _kernel_name("align", params), "walk": walk}, lambda a, b: a == b)
+
+    reads, panel, _, _ = data["map_reads"]
+    for axis in ("reads", "panel"):
+        item(f"map_reads panel_axis={axis}", lambda: map_reads(reads, panel),
+             lambda: map_reads(reads, panel, mesh=mesh, panel_axis=axis),
+             {**dna_fill, "search": "search[map_reads,dna_default]"},
+             _same_hits(("index", "score", "strand", "mapq")))
+    reads, genome, _, _ = data["map_to_reference"]
+    item("map_to_reference panel_axis=panel", lambda: map_to_reference(reads, genome),
+         lambda: map_to_reference(reads, genome, mesh=mesh, panel_axis="panel"),
+         {**dna_fill, "search": "search[map_to_reference]"},
+         _same_hits(("ref_id", "pos", "score", "strand", "mapq")))
+    reads, proteins, _, _ = data["translated_search"]
+    item("translated_search", lambda: translated_search(reads, proteins, alignments=True),
+         lambda: translated_search(reads, proteins, alignments=True, mesh=mesh),
+         {"search": "search[translated_search]",
+          "align_affine": _kernel_name("align", TRANSLATED_PARAMETERS)},
+         _same_hits(("index", "frame", "score", "scores", "dna_start", "dna_end", "strand")))
+
+    params = dna
+    r_np, f_np = (codes_for(params, rng, MULTIHOST_PAIRS, LENGTH) for _ in range(2))
+    engine = AlignmentEngine(params)
+    alg = Algorithm.SMITH_WATERMAN
+    step = MULTIHOST_PAIRS // 4
+    chunks = [(k, r_np[k * step:(k + 1) * step]) for k in range(4)]
+    for k, shards in prefetch_to_device(iter(chunks), depth=2, mesh=mesh):
+        want = shard_rows(chunks[k][1], mesh.size)
+        if len(shards) != mesh.size or any(
+                s.device != d or not np.array_equal(s.cpu().numpy(), w)
+                for s, d, w in zip(shards, mesh.devices, want)):
+            raise AssertionError(f"prefetch_to_device(mesh=): chunk {k}'s shards differ")
+    log(f"[parallel] prefetch_to_device(mesh=): 4 chunks of {step} x {LENGTH}, every row "
+        "shard on its card with the chunk's bytes, in order")
+    want_scores = engine.score_alignments(alg, r_np, f_np)
+    want_alns = engine.compute_alignments(alg, r_np, f_np)
+    gather_ms: list[float] = []
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        with _host_timed(dist, "all_gather", gather_ms):
+            multihost.multihost_score_batch(r_np, f_np, params, alg, mesh=mesh)
+            gather_ms.clear()
+            kernels = _zero_launches()
+            t0 = time.perf_counter()
+            scores = multihost.multihost_score_batch(r_np, f_np, params, alg, mesh=mesh)
+            alns, lo, hi = multihost.multihost_align_batch(r_np, f_np, params, alg, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            label = "multihost NCCL world 1"
+            launches[label] = _by_entry(label, _require_launches(
+                "multihost_score_batch / multihost_align_batch", kernels, dna_names),
+                dna_names)
+            for _ in range(REPS - 1):
+                multihost.multihost_score_batch(r_np, f_np, params, alg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    if not (np.array_equal(scores, want_scores) and (lo, hi) == (0, MULTIHOST_PAIRS)
+            and alns == want_alns):
+        raise AssertionError("multihost_score_batch / multihost_align_batch differ from "
+                             "the engine")
+    gather = {"median_ms": statistics.median(gather_ms), "min_ms": min(gather_ms),
+              "max_ms": max(gather_ms), "k": len(gather_ms)}
+    walls["multihost NCCL world 1"] = {"score_and_align_ms": wall, "all_gather": gather}
+    log(f"[parallel] multihost_score_batch + multihost_align_batch, NCCL at world size 1, "
+        f"{MULTIHOST_PAIRS} pairs of {LENGTH} x {LENGTH} SW: == the engine; {wall:.3f} ms; "
+        f"the scores' all_gather {gather['median_ms']:.3f} ms (min {gather['min_ms']:.3f}, "
+        f"max {gather['max_ms']:.3f}, {gather['k']} calls, host clock synchronised); {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_fasta(root / "reads.fa", _codes_text(r_np))
+        write_fasta(root / "refs.fa", _codes_text(f_np))
+        want = {}
+        reads_t, refs_t = _codes_text(r_np), _codes_text(f_np)
+        for a in Algorithm:
+            name = "smith_waterman" if a == Algorithm.SMITH_WATERMAN else "needleman_wunsch"
+            _write_scores(root / "s.txt", reads_t, refs_t, engine.score_alignments(a, r_np, f_np))
+            _write_alignments(root / "a.txt", engine.compute_alignments(a, r_np, f_np))
+            want[name] = ((root / "s.txt").read_text(), (root / "a.txt").read_text())
+        for label, outdir, nproc, extra in (("NCCL, 1 process", "nccl", 1, []),
+                                            ("gloo, 2 processes on one card", "gloo", 2,
+                                             ["--collective", "gloo"])):
+            wall_s, counts = _run_multihost(root, outdir, nproc, extra)
+            out = root / outdir
+            for name, (scores_txt, alns_txt) in want.items():
+                parts = sorted(out.glob(f"alignments_{name}.part*-of{nproc:03d}.txt"))
+                if (out / f"scores_{name}.txt").read_text() != scores_txt or len(parts) != nproc \
+                        or "".join(p.read_text() for p in parts) != alns_txt:
+                    raise AssertionError(f"torch_multihost_align.py ({label}): {name} files "
+                                         "differ from the engine's")
+            man = json.loads((out / "manifest.json").read_text())
+            rows = [o["rows"] for o in man["outputs"] if isinstance(o, dict)
+                    and "smith_waterman" in o["file"]]
+            if (man["processes"], man["devices"]) != (nproc, nproc * mesh.size) \
+                    or rows[0][0] != 0 or rows[-1][1] != MULTIHOST_PAIRS \
+                    or any(a[1] != b[0] for a, b in zip(rows, rows[1:])):
+                raise AssertionError(f"torch_multihost_align.py ({label}): bad manifest {man}")
+            launches[f"torch_multihost_align.py {label}"] = _by_entry(
+                label, {k: sum(c[k] for c in counts) for k in counts[0]}, dna_names)
+            walls[f"torch_multihost_align.py {label}"] = {"wall_s": wall_s}
+            log(f"[parallel] torch_multihost_align.py, {label}, {MULTIHOST_PAIRS} pairs of "
+                f"{LENGTH} x {LENGTH}, SW and NW: scores, merged alignment parts == the "
+                f"engine's bytes, manifest tiles the batch; {wall_s:.3f} s with the processes' "
+                f"start; launches {json.dumps(counts)}")
+
+        bulk_align = load_script("torch_bulk_align")
+        pairs = MESH_BULK_CHUNKS * BULK_CHUNK
+        label = "torch_bulk_align (staged loop on make_mesh())"
+        kernels = _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            bulk_align.main(["--pairs", str(pairs), "--len", str(LENGTH), "--chunk",
+                             str(BULK_CHUNK), "--ckpt", str(root / "bulk")])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        launches[label] = _by_entry(label, _require_launches(label, kernels, ("score",)),
+                                    dna_names)
+        if f"mesh={mesh.size}" not in text.getvalue() \
+                or kernels["score"].launches != MESH_BULK_CHUNKS * mesh.size:
+            raise AssertionError(f"{label}: not one launch a shard a chunk on the "
+                                 f"{mesh.size}-card mesh ({kernels['score'].launches} launches)")
+        got = np.load(root / "bulk" / "scores.npy")
+        want = np.concatenate([engine.score_alignments(
+            alg, *bulk_align.synthetic_chunk(0, c, BULK_CHUNK, LENGTH))
+            for c in range(MESH_BULK_CHUNKS)])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: scores.npy differs from the engine without a mesh")
+        walls[label] = {"wall_ms": wall}
+        log(f"[parallel] {label}, --pairs {pairs} --len {LENGTH} --chunk {BULK_CHUNK}: "
+            f"scores.npy == the engine without a mesh, chunk by chunk; one launch a shard a "
+            f"chunk; {wall:.3f} ms")
+    log(f"[parallel] {mesh.size} card(s) in the mesh; walls: {json.dumps(walls)}; {smi}")
+    return launches
+
+
 def phase_examples() -> dict:
     """Each ``examples/torch/*.py`` in a subprocess on the card and with
     ``--device cpu``, all at once on 8 workers: every run exits 0, the two
@@ -4276,6 +4578,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_bulk(edge_rng(args.seed, 15), dev)
     log(f"[phase] bulk: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_launches = phase_parallel(edge_rng(args.seed, 16), dev, data)
+    for entry in kernels:
+        entry["mesh_launches"] = {item: by_entry[entry["name"]]
+                                  for item, by_entry in mesh_launches.items()
+                                  if entry["name"] in by_entry}
+    missing = {name for by_entry in mesh_launches.values() for name in by_entry} - {
+        entry["name"] for entry in kernels}
+    if missing:
+        raise AssertionError(f"mesh launches of branches with no kernels entry: {missing}")
+    log(f"[phase] parallel: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_examples()
     log(f"[phase] examples: {time.perf_counter() - t0:.1f} s; whole script "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Bulk alignment pipeline on one card: millions of pairs, restartable (the
-port's counterpart of ``scripts/bulk_align.py``, in its single-device form,
-with the same checkpoint files).
+"""Bulk alignment pipeline on the cards of one process: millions of pairs,
+restartable (the port's counterpart of ``scripts/bulk_align.py``, with the
+same checkpoint files).
 
 Pair chunks (synthetic, drawn from ``--seed`` per chunk as
 ``scripts/bulk_align.py`` draws them, or from FASTA/FASTQ files) go through
@@ -10,19 +10,22 @@ and the replay (``--mode align``); completed chunks are journaled
 (``utils/checkpoint.ScoreCheckpoint``) so that a killed run resumes where
 it left off.
 
-``--mode score`` runs a dispatch-ahead loop: ``io.prefetch_to_device``
-stages chunk k+1's codes in page-locked memory and copies them on a side
-stream while chunk k scores, each chunk's scores are copied back into
-page-locked memory behind its launch, at most two chunks are in flight,
-and only the oldest is waited for. ``--no-prefetch`` copies each chunk
-from pageable memory and waits for its scores (the A/B). ``--mode align``
-writes each chunk's alignments (``AlignmentBatch.write_to``) to
-``alignments_<chunk>.txt`` and its scores to the checkpoint.
+``--mode score`` shards each chunk over a mesh of every card of the
+process (``parallel.make_mesh()``; one card is a mesh of one shard), as
+``scripts/bulk_align.py`` does, in a dispatch-ahead loop:
+``io.prefetch_to_device(mesh=)`` stages chunk k+1's row shards in
+page-locked memory and copies each to its card on a side stream while chunk
+k scores, the score kernel is launched on every shard
+(``parallel.distributed.score_shards``), each shard's scores are copied
+back into page-locked memory behind its launch, at most two chunks are in
+flight, and only the oldest is waited for. ``--no-prefetch`` copies each
+shard from pageable memory and waits for its scores (the A/B).
+``--mode align`` runs on one card and writes each chunk's alignments
+(``AlignmentBatch.write_to``) to ``alignments_<chunk>.txt`` and its scores
+to the checkpoint.
 
 Everything runs on ``--device`` (default ``cuda``, which raises without a
-card); ``--device cpu`` takes the plain PyTorch path. The JAX script's mesh
-path (several devices, ``distributed_score_batch``) is not here: it comes
-with the port's multi-device layer.
+card); ``--device cpu`` takes the plain PyTorch path (one shard).
 
 Usage:
   python scripts/torch_bulk_align.py --pairs 10000000 --len 128 --ckpt /tmp/run1
@@ -74,7 +77,9 @@ def main(argv=None) -> int:
     from versalignlib_tpu_torch.dispatch import _resolve_device
     from versalignlib_tpu_torch.io.staging import prefetch_to_device
     from versalignlib_tpu_torch.ops import cuda_align, cuda_walk
-    from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
+    from versalignlib_tpu_torch.parallel import make_mesh
+    from versalignlib_tpu_torch.parallel.distributed import (gather, on_device, score_shards,
+                                                             shard_rows)
     from versalignlib_tpu_torch.params import AlignmentParameters
     from versalignlib_tpu_torch.types import Algorithm
     from versalignlib_tpu_torch.utils.checkpoint import ScoreCheckpoint
@@ -82,6 +87,7 @@ def main(argv=None) -> int:
 
     device = _resolve_device(args.device)  # no card: RuntimeError
     cuda = device.type == "cuda"
+    mesh = make_mesh(device=device)
     p = AlignmentParameters()
     algorithm = Algorithm.SMITH_WATERMAN if args.algorithm == "sw" else Algorithm.NEEDLEMAN_WUNSCH
 
@@ -106,41 +112,48 @@ def main(argv=None) -> int:
     pending = ckpt.pending_chunks()
     done = -(-total // args.chunk) - len(pending)
     print(f"{total} pairs, chunk {args.chunk}: {done} chunks done, "
-          f"{len(pending)} pending; device={device}")
+          f"{len(pending)} pending; device={device} "
+          f"mesh={mesh.size if args.mode == 'score' else 'no'}")
     pairs_run = sum(hi - lo for _, lo, hi in pending)
 
-    def to_host(scores: torch.Tensor):
-        """The scores on their way to the host: on the card a copy into
-        page-locked memory queued behind the launch, and its event."""
+    def to_host(shards: list[torch.Tensor]) -> list[tuple]:
+        """Each shard's scores on their way to the host: on a card a copy
+        into page-locked memory queued behind its launch, and its event."""
         if not cuda:
-            return scores, None
-        host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-        host.copy_(scores, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(device))
-        return host, ready
+            return [(s, None) for s in shards]
+        out = []
+        for scores, dev in zip(shards, mesh.devices):
+            with on_device(dev):
+                host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+                host.copy_(scores, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(dev))
+            out.append((host, ready))
+        return out
 
     meter = GcupsMeter()
     t_start = time.perf_counter()
 
     if args.mode == "score" and not args.no_prefetch:
         staged = prefetch_to_device(
-            ((c, lo, *get_chunk(c, lo, hi)) for c, lo, hi in pending), depth=2, device=device)
+            ((c, lo, hi, *get_chunk(c, lo, hi)) for c, lo, hi in pending), depth=2, mesh=mesh)
         inflight: collections.deque = collections.deque()
         cells_total = 0
 
         def commit_oldest():
-            c_, lo_, (host, ready) = inflight.popleft()
-            if ready is not None:
-                ready.synchronize()
-            ckpt.commit(c_, lo_, host.numpy().astype(np.int32, copy=False))
+            c_, lo_, hi_, parts = inflight.popleft()
+            for _, ready in parts:
+                if ready is not None:
+                    ready.synchronize()
+            scores = gather([host for host, _ in parts])[:hi_ - lo_]
+            ckpt.commit(c_, lo_, scores.astype(np.int32, copy=False))
             if (c_ % 8) == 0:
                 rate = cells_total / max(time.perf_counter() - t_start, 1e-9)
                 print(f"  chunk {c_}: {rate / 1e9:.1f} GCUPS aggregate")
 
-        for c, lo, r_d, f_d in staged:
-            cells_total += r_d.shape[0] * r_d.shape[1] * f_d.shape[1]
-            inflight.append((c, lo, to_host(score_batch_device(r_d, f_d, p, algorithm))))
+        for c, lo, hi, r_sh, f_sh in staged:
+            cells_total += (hi - lo) * r_sh[0].shape[1] * f_sh[0].shape[1]
+            inflight.append((c, lo, hi, to_host(score_shards(r_sh, f_sh, p, algorithm, mesh))))
             if len(inflight) >= 2:
                 commit_oldest()
         while inflight:
@@ -157,9 +170,11 @@ def main(argv=None) -> int:
         cells = reads.shape[0] * reads.shape[1] * refs.shape[1]
         with meter.measure(cells):
             if args.mode == "score":
-                out = score_batch_device(torch.from_numpy(reads).to(device),
-                                         torch.from_numpy(refs).to(device), p, algorithm)
-                scores = out.cpu().numpy().astype(np.int32, copy=False)
+                r_sh, f_sh = ([torch.from_numpy(s).to(dev) for s, dev in
+                               zip(shard_rows(x, mesh.size), mesh.devices)]
+                              for x in (reads, refs))
+                out = gather(score_shards(r_sh, f_sh, p, algorithm, mesh))[:hi - lo]
+                scores = out.astype(np.int32, copy=False)
             else:
                 # The raw column store: no per-pair Alignment objects.
                 alns = cuda_align.align_batch(reads, refs, p, algorithm, device=device,

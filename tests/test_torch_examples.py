@@ -16,7 +16,7 @@ EXAMPLES = example_scripts()
 
 def test_every_jax_example_but_the_multichip_one_has_a_twin():
     jax_examples = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
-    assert [p.name for p in EXAMPLES] == [n for n in jax_examples if n != "05_multichip.py"]
+    assert [p.name for p in EXAMPLES] == jax_examples
     assert all(p.parent == ROOT / "examples" / "torch" for p in EXAMPLES)
 
 

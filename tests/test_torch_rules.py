@@ -63,8 +63,11 @@ def test_port_imports_with_jax_blocked():
         "import versalignlib_tpu_torch.__main__\n"
         "from versalignlib_tpu_torch import debug, serve\n"
         "from versalignlib_tpu_torch.utils import checkpoint, timers\n"
+        "from versalignlib_tpu_torch import parallel\n"
+        "from versalignlib_tpu_torch.parallel import distributed, mesh, multihost\n"
         "import chip_smoke\n"
-        "for name in ('torch_serve_bench', 'torch_bulk_map', 'torch_bulk_align'):\n"
+        "for name in ('torch_serve_bench', 'torch_bulk_map', 'torch_bulk_align',\n"
+        "             'torch_multihost_align'):\n"
         "    chip_smoke.load_script(name)\n"
         "print('ok')\n"
     )
@@ -79,8 +82,13 @@ def test_port_sources_cover_the_new_modules():
     assert {"versalignlib_tpu_torch/serve.py", "versalignlib_tpu_torch/debug.py",
             "versalignlib_tpu_torch/utils/checkpoint.py",
             "versalignlib_tpu_torch/utils/timers.py", "scripts/torch_serve_bench.py",
-            "scripts/torch_bulk_map.py", "scripts/torch_bulk_align.py"} <= names
-    assert len([n for n in names if n.startswith("examples/torch/")]) == 8
+            "scripts/torch_bulk_map.py", "scripts/torch_bulk_align.py",
+            "versalignlib_tpu_torch/parallel/__init__.py",
+            "versalignlib_tpu_torch/parallel/mesh.py",
+            "versalignlib_tpu_torch/parallel/distributed.py",
+            "versalignlib_tpu_torch/parallel/multihost.py",
+            "scripts/torch_multihost_align.py", "examples/torch/05_multichip.py"} <= names
+    assert len([n for n in names if n.startswith("examples/torch/")]) == 9
 
 
 def test_package_exports_pin_the_jax_packages():

@@ -97,6 +97,12 @@ def _resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def _resolve_placement(device: torch.device | str, mesh) -> torch.device:
+    """The device an entry point runs on: with a mesh its first device (the
+    shards run on all of its devices), else ``device`` resolved."""
+    return mesh.devices[0] if mesh is not None else _resolve_device(device)
+
+
 class AlignmentEngine:
     """User-facing entry point: scoring and full alignment over string or
     code batches (the reference example driver's kernel handling,
@@ -109,15 +115,24 @@ class AlignmentEngine:
         tie: TieBreak = TieBreak.DIAG_UP_LEFT,
         device: torch.device | str = "cuda",
         device_walk: bool | None = None,
+        mesh=None,
     ) -> None:
         """``device``: ``"cuda"`` (default; raises without a card) or
         ``"cpu"`` for the plain PyTorch path. ``device_walk``: the traceback
         walk on the device, so that only row records come back to the host;
         None (the default) walks on the card for CUDA and on the host for
-        the CPU, and True on the CPU runs the plain walk."""
+        the CPU, and True on the CPU runs the plain walk.
+
+        ``mesh``: a :class:`~versalignlib_tpu_torch.parallel.mesh.Mesh`;
+        scores and alignments then run data-parallel over its devices
+        (``parallel/distributed.py``) through the ``cuda`` backend's kernels,
+        and ``device`` is the mesh's first device."""
         self.params = params
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.device = _resolve_placement(device, mesh)
         self.backend = get_backend(backend, self.device)
+        if mesh is not None and self.backend.name != "cuda":
+            raise ValueError(f"a mesh runs the cuda backend's kernels, not {backend!r}")
         self.tie = tie
         self.device_walk = device_walk
 
@@ -139,6 +154,11 @@ class AlignmentEngine:
 
     def score_alignments(self, algorithm: Algorithm, reads, refs) -> np.ndarray:
         reads_enc, refs_enc = self._prepare(reads, refs)
+        if self.mesh is not None:
+            from versalignlib_tpu_torch.parallel.distributed import distributed_score_batch
+
+            return distributed_score_batch(reads_enc, refs_enc, self.params, algorithm,
+                                           mesh=self.mesh)
         return np.asarray(
             self.backend.score_alignments(algorithm, reads_enc, refs_enc, self.params),
             dtype=np.int32,
@@ -153,6 +173,15 @@ class AlignmentEngine:
         ``Alignment`` objects. ``gapped=False`` (raw only): CIGAR-only
         columns, no gapped strings."""
         reads_enc, refs_enc = self._prepare(reads, refs)
+        if self.mesh is not None:
+            if raw:
+                raise ValueError("raw alignment batches require the cuda backend "
+                                 "without a mesh")
+            from versalignlib_tpu_torch.parallel.distributed import distributed_align_batch
+
+            return distributed_align_batch(reads_enc, refs_enc, self.params, algorithm,
+                                           self.tie, mesh=self.mesh,
+                                           device_walk=self.device_walk)
         if self.backend.name != "cuda":
             if raw:
                 raise ValueError("raw alignment batches require the cuda backend")

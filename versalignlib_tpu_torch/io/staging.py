@@ -22,6 +22,7 @@ def prefetch_to_device(
     chunks: Iterable[tuple],
     depth: int = 2,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> Iterator[tuple]:
     """Yield each chunk with its ndarrays staged on ``device``, ``depth``
     chunks ahead of the one being consumed.
@@ -36,48 +37,73 @@ def prefetch_to_device(
     referenced until their copies have finished. With ``device="cpu"`` the
     arrays come back as ``torch.from_numpy`` views. ``depth`` bounds device
     memory: at most ``depth`` chunks are staged beyond the one consumed.
+
+    ``mesh`` (in place of ``device``, where the JAX function takes a
+    ``sharding``): each array becomes the list of its row shards, shard d
+    on the mesh's device d, in the layout of ``parallel/distributed.py``
+    (rows padded with zeros to a multiple of the mesh size, equal
+    contiguous shards), each staged as above on a side stream of its own
+    device.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
-    from versalignlib_tpu_torch.dispatch import _resolve_device
+    from versalignlib_tpu_torch.dispatch import _resolve_placement
+    from versalignlib_tpu_torch.parallel.distributed import shard_rows
 
-    device = _resolve_device(device)
-    if device.type == "cpu":
+    first = _resolve_placement(device, mesh)
+    devices = (first,) if mesh is None else mesh.devices
+
+    def pieces(x: np.ndarray) -> list[np.ndarray]:
+        return [x] if mesh is None else shard_rows(x, mesh.size)
+
+    def as_given(staged: list):
+        """One tensor without a mesh, the list of its shards with one."""
+        return staged[0] if mesh is None else staged
+
+    if first.type == "cpu":
         yield from _ahead(chunks, depth, lambda item: tuple(
-            torch.from_numpy(x) if isinstance(x, np.ndarray) else x for x in item))
+            as_given([torch.from_numpy(p) for p in pieces(x)]) if isinstance(x, np.ndarray)
+            else x for x in item))
         return
 
-    side = torch.cuda.Stream(device)
-    in_flight: collections.deque = collections.deque()  # (event, page-locked sources)
+    sides = {dev: torch.cuda.Stream(dev) for dev in dict.fromkeys(devices)}
+    in_flight: collections.deque = collections.deque()  # (events, page-locked sources)
 
     def stage(item: tuple):
-        out, sources = [], []
-        with torch.cuda.stream(side):
-            for x in item:
-                if isinstance(x, np.ndarray):
-                    src = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
-                    sources.append(src)
-                    out.append(src.to(device, non_blocking=True))
-                else:
-                    out.append(x)
-            done = torch.cuda.Event()
-            done.record(side)
+        out, sources, copies = [], [], []
+        for x in item:
+            if not isinstance(x, np.ndarray):
+                out.append(x)
+                continue
+            staged = []
+            for piece, dev in zip(pieces(x), devices):
+                src = torch.from_numpy(np.ascontiguousarray(piece)).pin_memory()
+                sources.append(src)
+                with torch.cuda.stream(sides[dev]):
+                    staged.append(src.to(dev, non_blocking=True))
+            copies += staged
+            out.append(as_given(staged))
+        done = []
+        for dev, side in sides.items():
+            event = torch.cuda.Event()
+            event.record(side)
+            done.append((dev, event))
         in_flight.append((done, sources))
-        return tuple(out), done
+        return tuple(out), done, copies
 
     try:
-        for staged, done in _ahead(chunks, depth, stage):
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(done)
-            for x in staged:
-                if isinstance(x, torch.Tensor):
-                    x.record_stream(consumer)
-            while in_flight and in_flight[0][0].query():
+        for staged, done, copies in _ahead(chunks, depth, stage):
+            for dev, event in done:
+                torch.cuda.current_stream(dev).wait_event(event)
+            for x in copies:
+                x.record_stream(torch.cuda.current_stream(x.device))
+            while in_flight and all(e.query() for _, e in in_flight[0][0]):
                 in_flight.popleft()
             yield staged
     finally:
         for done, _ in in_flight:
-            done.synchronize()
+            for _, event in done:
+                event.synchronize()
 
 
 def _ahead(chunks: Iterable[tuple], depth: int, stage) -> Iterator:

@@ -110,7 +110,8 @@ class CudaKernel:
     """One C launch entry of a ``csrc/*.cu`` source, built at first use.
 
     ``launches`` counts the launches made through :meth:`launch`, and
-    nothing else, so that a run can show which kernels its path reached.
+    nothing else, so that a run can show which kernels its path reached
+    (under a lock: a mesh launches from one thread a card).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -118,6 +119,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self._fn = None
 
@@ -137,4 +139,5 @@ class CudaKernel:
         rc = self._function()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}) failed: CUDA error {rc}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

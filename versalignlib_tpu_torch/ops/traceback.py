@@ -3,7 +3,8 @@
 
 ``ops/cuda_align.py`` uses it only for the degenerate batch with an empty
 read or ref axis, where the walk is boundary-only; every other batch goes
-through the native decoder, with no fallback to this walker.
+through the native decoder, with no fallback to this walker, and so do the
+dense pointer codes of :func:`decode_batch`.
 """
 
 from __future__ import annotations
@@ -107,3 +108,30 @@ def decode_one(
         buffer_start=aln_length - 1 - steps,
         buffer_end=aln_length - 1,
     )
+
+
+def decode_batch(
+    ptr_inner: np.ndarray,
+    reads: np.ndarray,
+    refs: np.ndarray,
+    start_read_pos: np.ndarray,
+    start_ref_pos: np.ndarray,
+    params: AlignmentParameters,
+    algorithm: Algorithm,
+    scores: np.ndarray | None = None,
+    read_texts: list[str] | None = None,
+    ref_texts: list[str] | None = None,
+) -> list[Alignment]:
+    """Decode a batch of dense (B, m, n) uint8 move codes, ``ptr_inner[i,
+    r, c]`` that of DP cell (r+1, c+1) (as ``distributed_align_device``
+    returns them): packed 16 to a word and walked by the native decoder."""
+    import torch
+
+    from versalignlib_tpu_torch.native import decode_batch_native
+    from versalignlib_tpu_torch.ops.plain import PACK, pack_words
+
+    codes = torch.from_numpy(np.ascontiguousarray(ptr_inner)).to(torch.int64)
+    b, m, n = codes.shape
+    words = pack_words(codes.reshape(b * m, n)).reshape(b, m, -1).numpy()
+    return decode_batch_native((words, PACK), reads, refs, start_read_pos, start_ref_pos,
+                               params, algorithm, scores, read_texts, ref_texts)

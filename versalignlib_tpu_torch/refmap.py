@@ -1,6 +1,6 @@
 """Whole-reference read mapping: exhaustive window tiling on the card.
 
-The port of ``versalignlib_tpu/refmap.py`` (less the mesh helpers). Reads
+The port of ``versalignlib_tpu/refmap.py``. Reads
 are mapped against long references (contigs, chromosomes) by tiling each
 reference into overlapping fixed-size windows and scoring every (read,
 window) pair with the one-vs-many kernel (``csrc/search.cu``). Exhaustive
@@ -25,13 +25,12 @@ import numpy as np
 import torch
 
 from versalignlib_tpu_torch.alphabet import pad_and_encode, reverse_complement_codes
-from versalignlib_tpu_torch.dispatch import _resolve_device
+from versalignlib_tpu_torch.dispatch import _resolve_placement
 from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
-from versalignlib_tpu_torch.search import (NEG32, _align_pairs, _chunk_for,
-                                           _chunk_scores, _encode, _mapq_from_gap,
-                                           _to_device, _topk, unmapped_alignment)
+from versalignlib_tpu_torch.search import (NEG32, _align_pairs, _check_budget, _chunk_for,
+                                           _encode, _mapq_from_gap, _Reads,
+                                           unmapped_alignment)
 from versalignlib_tpu_torch.types import Algorithm, Alignment, TieBreak
-from versalignlib_tpu_torch.utils.capabilities import check_search_budget
 
 #: Minimum top-k pool per read; map_to_reference widens it to twice the
 #: same-locus window distance, so the pool always keeps a distinct-locus
@@ -103,24 +102,26 @@ def tile_references(references, window: int, stride: int) -> WindowIndex:
                        ref_lengths=[c.shape[0] for c in enc])
 
 
-def _stream_topk(reads_enc, windows, params, algorithm, device, chunk, k: int = TOPK):
+def _stream_topk(reads_enc, windows, params, algorithm, device, chunk, k: int = TOPK,
+                 mesh=None, panel_axis: str = "reads"):
     """Top-k (score, window-index) fold over window chunks.
 
     Returns (vals (B, k) int32 descending, args (B, k) int32). Ties within
     and across chunks resolve to the lower window index (scan order): each
-    chunk's top-k is stable on the card (``search._topk``), and the host
-    merge sorts by (-score, window).
+    chunk's top-k is stable on the card (``search._Reads.topk``), and the
+    host merge sorts by (-score, window). ``panel_axis="panel"`` (with
+    ``mesh``) shards the window axis over the mesh, so that a genome's
+    window set is never replicated on every device.
     """
     b = reads_enc.shape[0]
     r = windows.shape[0]
-    reads_dev = _to_device(reads_enc, device)
+    reads = _Reads(reads_enc, params, algorithm, device, mesh, panel_axis)
     vals = np.full((b, k), NEG32, dtype=np.int64)
     args = np.zeros((b, k), dtype=np.int64)
     for lo in range(0, r, chunk):
         pc = windows[lo:lo + chunk]
-        kk = min(k, pc.shape[0])
-        top_v, top_a = _topk(_chunk_scores(reads_dev, pc, params, algorithm), kk)
-        cand_v = np.concatenate([vals, top_v.astype(np.int64)], axis=1)
+        top_v, top_a = reads.topk(pc, min(k, pc.shape[0]))
+        cand_v = np.concatenate([vals, top_v], axis=1)
         cand_a = np.concatenate([args, top_a + lo], axis=1)
         order = np.lexsort((cand_a, -cand_v), axis=1)[:, :k]
         vals = np.take_along_axis(cand_v, order, axis=1)
@@ -173,7 +174,9 @@ def map_to_reference(
     align: bool = True,
     backend: str = "auto",
     tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+    mesh=None,
     both_strands: bool = True,
+    panel_axis: str = "reads",
 ) -> ReferenceHits:
     """Map reads against long references by exhaustive window scoring.
 
@@ -183,7 +186,10 @@ def map_to_reference(
     search exact. Both strands are scored (DNA; ``both_strands=False`` turns
     it off). ``align=True`` traces back each read against its winning window
     only and shifts the result to global coordinates. ``references`` may be
-    a prebuilt :class:`WindowIndex`.
+    a prebuilt :class:`WindowIndex`. ``mesh`` and ``panel_axis`` as in
+    :func:`~versalignlib_tpu_torch.search.score_matrix`: ``panel_axis=
+    "panel"`` shards the window axis over the mesh, with each device's
+    top-k taken on the device, for when the tiled genome dominates memory.
     """
     if params.matrix is not None and both_strands:
         raise ValueError("both_strands mapping is DNA-only (custom "
@@ -204,7 +210,7 @@ def map_to_reference(
             f"window-stride overlap {overlap} < 2x read length {2 * m}: "
             f"alignments spanning more than {overlap}bp of reference may "
             "straddle every window and score low", stacklevel=2)
-    device = _resolve_device(device)
+    device = _resolve_placement(device, mesh)
     n_w = len(index)
     if b == 0 or n_w == 0:
         return ReferenceHits(np.full(b, -1, np.int32), np.zeros(b, np.int64),
@@ -213,18 +219,18 @@ def map_to_reference(
                              [unmapped_alignment() for _ in range(b)] if align else None)
     algorithm = Algorithm(algorithm)
     chunk = _chunk_for(b, n_w, max_pairs)
-    check_search_budget(m, index.window, b * chunk, params.affine, device)
+    _check_budget(m, index.window, b * chunk, params.affine, device, mesh)
     # Windows of one reference closer than this overlap the winner's locus;
     # the pool must be wide enough to keep a distinct candidate past up to
     # 2 * (min_dist - 1) overlap neighbours.
     min_dist = -(-index.window // index.stride)
     k = max(TOPK, 2 * min_dist)
     vals, args = _stream_topk(reads_enc, index.windows, params, algorithm,
-                              device, chunk, k=k)
+                              device, chunk, k, mesh, panel_axis)
     if both_strands:
         rc_enc = reverse_complement_codes(reads_enc)
         rc_vals, rc_args = _stream_topk(rc_enc, index.windows, params, algorithm,
-                                        device, chunk, k=k)
+                                        device, chunk, k, mesh, panel_axis)
         rev = rc_vals[:, 0] > vals[:, 0]     # strict >: forward wins ties
         # The distinct-locus second best takes candidates from both
         # orientations relative to the winning orientation's locus.
@@ -246,7 +252,7 @@ def map_to_reference(
     alns = None
     if align:
         alns = _align_pairs(oriented, index.windows[arg], params, algorithm, tie,
-                            backend, device)
+                            backend, device, mesh)
         # Window-relative coordinates to global reference coordinates.
         alns = [dataclasses.replace(a, ref_start=a.ref_start + int(index.start[w]),
                                     ref_end=a.ref_end + int(index.start[w]))

@@ -19,7 +19,7 @@ import torch
 
 from versalignlib_tpu_torch.alphabet import (PROTEIN_ALPHABET, blosum62, encode,
                                              encode_custom, pad_and_encode)
-from versalignlib_tpu_torch.dispatch import _resolve_device
+from versalignlib_tpu_torch.dispatch import _resolve_placement
 from versalignlib_tpu_torch.ops import cuda_align
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.search import score_matrix
@@ -157,6 +157,8 @@ def translated_search(
     alignments: bool = False,
     calibration=None,
     panel_chunk: int | None = None,
+    mesh=None,
+    panel_axis: str = "reads",
 ) -> TranslatedHits:
     """Score DNA reads against a protein panel in all six reading frames.
 
@@ -173,13 +175,16 @@ def translated_search(
     E-value and bitscore. ``panel_chunk``: fold the best hit per read across
     panel chunks instead of keeping the (B, 6, R) host tensor (``scores`` is
     None then; the fold is lexicographic in (score, frame, panel index)).
+    ``mesh`` / ``panel_axis`` pass through to :func:`score_matrix` for
+    sharded scans; the winners' alignments then run on the mesh's first
+    device, as the JAX package aligns them on its default device.
     """
     params = TRANSLATED_PARAMETERS if params is None else params
     if params.matrix is None:
         raise ValueError(
             "translated_search needs a protein substitution matrix "
             "(params.matrix); default TRANSLATED_PARAMETERS uses BLOSUM62")
-    device = _resolve_device(device)
+    device = _resolve_placement(device, mesh)
     if isinstance(reads, np.ndarray) and reads.ndim == 2:
         read_codes = reads.astype(np.uint8)
     else:
@@ -212,7 +217,8 @@ def translated_search(
                 (best_j[rows, best_f] + lo).astype(np.int32))
 
     if panel_chunk is None:
-        scores = score_matrix(queries, panel_codes, params, algorithm, device=device)
+        scores = score_matrix(queries, panel_codes, params, algorithm, device=device,
+                              mesh=mesh, panel_axis=panel_axis)
         scores = np.asarray(scores, dtype=np.int32).reshape(b, len(FRAMES), n_panel)
         best_s, best_f, idx = fold_chunk(scores, 0)
     else:
@@ -225,7 +231,8 @@ def translated_search(
         idx = np.zeros(b, np.int32)
         for lo in range(0, n_panel, panel_chunk):
             pc = panel_codes[lo:lo + panel_chunk]
-            sc = np.asarray(score_matrix(queries, pc, params, algorithm, device=device),
+            sc = np.asarray(score_matrix(queries, pc, params, algorithm, device=device,
+                                         mesh=mesh, panel_axis=panel_axis),
                             dtype=np.int32).reshape(b, len(FRAMES), pc.shape[0])
             cs, cf, cj = fold_chunk(sc, lo)
             take = (cs > best_s) | ((cs == best_s) & (cf < best_f))
