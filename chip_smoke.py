@@ -1822,6 +1822,13 @@ BANDED_SLICE, BANDED_CHECK = 8, 16
 LONG_READS, LONG_MIN, LONG_MAX, LONG_JUNK, JUNK_LEN, LONG_SLACK = 256, 12000, 15000, 16, 12000, 50
 #: HiFi-like errors: substitutions and indels (of 1-3 bp) per base.
 HIFI_SUB, HIFI_INDEL = 0.005, 0.003
+#: The protein banded models' pairs: PROTEIN_PAIRS whole chains of
+#: PROTEIN_LEN residues (long multi-domain proteins) and refs, each a
+#: homolog of its read with PROTEIN_SUB substitutions and PROTEIN_INDEL
+#: indels of 1-3 residues per residue (a few a pair), which keep the path
+#: inside a band of BAND.
+PROTEIN_PAIRS, PROTEIN_LEN, PROTEIN_SUB, PROTEIN_INDEL = 1024, 4096, 0.15, 0.001
+PROTEIN_CHECK = 16
 #: One round of the banded path with the walk on the card: a wave of
 #: LONG_ROUND_PAIRS pairs of LONG_ROUND_LEN bp at band BAND (13.5 GB of
 #: pointer words that never leave the card), LONG_ROUND_CHECK of them
@@ -1871,13 +1878,14 @@ def _all_kernels():
             "banded_walk": BANDED_WALK_KERNEL}
 
 
-def hifi_copy(rng, seq: np.ndarray, length: int | None = None) -> np.ndarray:
-    """A HiFi-like copy of ``seq``: HIFI_SUB substitutions and HIFI_INDEL
-    insertions or deletions of 1-3 bp per base; cut or padded with 0 to
-    ``length`` when given."""
-    seq = _substitute(rng, seq, HIFI_SUB, 4)
+def hifi_copy(rng, seq: np.ndarray, length: int | None = None, sub: float = HIFI_SUB,
+              indel: float = HIFI_INDEL, letters: int = 4) -> np.ndarray:
+    """A HiFi-like copy of ``seq``: ``sub`` substitutions and ``indel``
+    insertions or deletions of 1-3 codes per code, the codes 1..``letters``;
+    cut or padded with 0 to ``length`` when given."""
+    seq = _substitute(rng, seq, sub, letters)
     n = seq.shape[0]
-    where = np.sort(rng.choice(n, size=rng.binomial(n, HIFI_INDEL), replace=False))
+    where = np.sort(rng.choice(n, size=rng.binomial(n, indel), replace=False))
     parts, lo = [], 0
     for pos in where:
         if pos < lo:
@@ -1885,7 +1893,7 @@ def hifi_copy(rng, seq: np.ndarray, length: int | None = None) -> np.ndarray:
         size = int(rng.integers(1, 4))
         parts.append(seq[lo:pos])
         if rng.random() < 0.5:      # insertion before pos
-            parts.append(rng.integers(1, 5, size=size).astype(np.uint8))
+            parts.append(rng.integers(1, letters + 1, size=size).astype(np.uint8))
             lo = pos
         else:                       # deletion of seq[pos:pos + size]
             lo = pos + size
@@ -1904,6 +1912,18 @@ def make_banded_pairs(rng, genome: np.ndarray):
     starts = rng.integers(0, genome.shape[0] - BANDED_LEN + 1, size=BANDED_PAIRS)
     refs = genome[starts[:, None] + np.arange(BANDED_LEN)]
     reads = np.stack([hifi_copy(rng, f, BANDED_LEN) for f in refs])
+    return reads, refs
+
+
+def make_protein_pairs(rng):
+    """PROTEIN_PAIRS reads of PROTEIN_LEN residues from ``random_protein``,
+    its trailing padding filled with residues (whole chains), and refs, each
+    a copy of its read with PROTEIN_SUB substitutions and PROTEIN_INDEL
+    indels of 1-3 residues, padded with 0 or cut to PROTEIN_LEN."""
+    reads = random_protein(rng, PROTEIN_PAIRS, PROTEIN_LEN)
+    reads = np.where(reads == 0, rng.integers(1, 21, size=reads.shape), reads).astype(np.uint8)
+    refs = np.stack([hifi_copy(rng, r, PROTEIN_LEN, PROTEIN_SUB, PROTEIN_INDEL, 20)
+                     for r in reads])
     return reads, refs
 
 
@@ -2219,19 +2239,24 @@ def _run_banded(name: str, fn, want: tuple):
 
 
 def phase_banded_models(rng, dev, pairs) -> dict:
-    """The banded models at full width on BANDED_PAIRS pairs: score (B5) and
+    """The banded models at full width, the DNA ones on BANDED_PAIRS pairs
+    of BANDED_LEN, the BLOSUM62 ones (affine SW, linear NW) on PROTEIN_PAIRS
+    protein pairs of PROTEIN_LEN (``make_protein_pairs``): score (B5) and
     align (B6 and the walk, B9 or B10) each run once with the launch counts
     read around it, align again with the walk on the host (== on every
-    pair), checked on BANDED_CHECK pairs against the plain reference on the
-    card."""
+    pair), checked on BANDED_CHECK (DNA) or PROTEIN_CHECK pairs against the
+    plain reference on the card."""
     import dataclasses
 
     from versalignlib_tpu_torch import models
     from versalignlib_tpu_torch.ops import cuda_banded
     from versalignlib_tpu_torch.types import Algorithm
 
-    reads, refs = pairs
-    pick = np.sort(rng.choice(BANDED_PAIRS, size=BANDED_CHECK, replace=False))
+    inputs = {"dna": pairs}
+    picks = {"dna": np.sort(rng.choice(BANDED_PAIRS, size=BANDED_CHECK, replace=False))}
+    inputs["protein"] = make_protein_pairs(rng)
+    picks["protein"] = np.sort(rng.choice(PROTEIN_PAIRS, size=PROTEIN_CHECK, replace=False))
+    sets = _param_sets()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rounds = cuda_banded.chunk_pairs_for(BANDED_LEN, BAND, sms)
     t0 = time.perf_counter()
@@ -2241,14 +2266,23 @@ def phase_banded_models(rng, dev, pairs) -> dict:
     log(f"[banded] rounds of {rounds} pairs; two page-locked buffers of "
         f"{4 * rounds * BANDED_LEN * BAND // 8 / 2**30:.2f} GiB pinned in {pin_ms:.1f} ms")
     runs = {
-        "banded_smith_waterman": ("dna_default", models.banded_smith_waterman(band=BAND)),
-        "banded_needleman_wunsch": ("dna_default", models.banded_needleman_wunsch(band=BAND)),
-        "banded_affine_bwamem": ("dna_affine_bwamem", models.AlignmentModel(
-            "banded_affine_bwamem", Algorithm.SMITH_WATERMAN, _param_sets()["dna_affine_bwamem"],
+        "banded_smith_waterman": ("dna_default", "dna", models.banded_smith_waterman(band=BAND)),
+        "banded_needleman_wunsch": ("dna_default", "dna",
+                                    models.banded_needleman_wunsch(band=BAND)),
+        "banded_affine_bwamem": ("dna_affine_bwamem", "dna", models.AlignmentModel(
+            "banded_affine_bwamem", Algorithm.SMITH_WATERMAN, sets["dna_affine_bwamem"],
             banded=True, band=BAND, band_tile=BAND_TILE)),
+        "banded_protein_blosum62": ("protein_blosum62_affine", "protein", models.AlignmentModel(
+            "banded_protein_blosum62", Algorithm.SMITH_WATERMAN,
+            sets["protein_blosum62_affine"], banded=True, band=BAND, band_tile=BAND_TILE)),
+        "banded_protein_blosum62_linear_nw": ("protein_blosum62_linear", "protein",
+                                              models.AlignmentModel(
+            "banded_protein_blosum62_linear_nw", Algorithm.NEEDLEMAN_WUNSCH,
+            sets["protein_blosum62_linear"], banded=True, band=BAND, band_tile=BAND_TILE)),
     }
     out = {"rounds": rounds, "pin_ms": pin_ms}
-    for name, (pname, model) in runs.items():
+    for name, (pname, data, model) in runs.items():
+        (reads, refs), pick = inputs[data], picks[data]
         scores, s_run = _run_banded(f"{name}.score", lambda: model.score(reads, refs),
                                     ("banded_score",))
         alns, a_run = _run_banded(f"{name}.align", lambda: model.align(reads, refs),
@@ -2259,7 +2293,7 @@ def phase_banded_models(rng, dev, pairs) -> dict:
         if not all(map(_same_alignment, alns, host_alns)):
             raise AssertionError(f"{name}: the walk on the card differs from the walk on the "
                                  "host")
-        if scores.shape != (BANDED_PAIRS,) or (scores <= 0).any() or len(alns) != BANDED_PAIRS:
+        if scores.shape != (len(reads),) or (scores <= 0).any() or len(alns) != len(reads):
             raise AssertionError(f"{name}: bad scores or alignment count")
         # SW: the best score is the alignment's. NW need not agree: its
         # overlap score takes the last column of every row, padding rows
@@ -2269,9 +2303,11 @@ def phase_banded_models(rng, dev, pairs) -> dict:
         if model.algorithm == Algorithm.SMITH_WATERMAN and \
                 not (scores == np.array([a.score for a in alns])).all():
             raise AssertionError(f"{name}: scores and alignment scores disagree")
+        t0 = time.perf_counter()
         with _plain_banded():
             want_s = model.score(reads[pick], refs[pick])
             want_a = model.align(reads[pick], refs[pick])
+        plain_s = time.perf_counter() - t0
         if not (scores[pick] == want_s).all():
             raise AssertionError(f"{name}: scores differ from the plain reference")
         _check_alignments(name, [alns[i] for i in pick], want_a)
@@ -2289,8 +2325,8 @@ def phase_banded_models(rng, dev, pairs) -> dict:
             + json.dumps({k: round(v, 3) for k, v in split.items()})
             + "; walk on the host: " + json.dumps({k: round(v, 3) for k, v in
                                                  h_run["split"].items() if v})
-            + f"; all {BANDED_PAIRS} == walk on the host; {BANDED_CHECK} pairs == plain "
-            "reference")
+            + f"; all {len(reads)} pairs of {reads.shape[1]} x {refs.shape[1]} ({pname}) == "
+            f"walk on the host; {len(pick)} pairs == plain reference ({plain_s:.1f} s)")
     return out
 
 
@@ -2382,7 +2418,8 @@ def phase_banded_times(rng, dev, pairs, errs: dict, plain_ms: dict, runs: dict,
     branches on the same pairs, whose codes are residues there): the median
     of 7 with min and max, GCUPS in band cells, the bound; the plain
     versions' times are the slice's (BANDED_SLICE pairs). Launches are the
-    banded models' runs, which take the DNA branches (0 for the others)."""
+    banded models' runs of the branch's parameter set (the BLOSUM62 ones on
+    their protein pairs)."""
     from versalignlib_tpu_torch.ops import cuda_banded
     from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos
     from versalignlib_tpu_torch.types import Algorithm, TieBreak
@@ -3309,6 +3346,9 @@ CLI_MODES = {
     "band": ["--reads", "band_reads.fa", "--refs", "band_refs.fa", "--band", "32", "--sam"],
     "band_affine": ["--reads", "band_reads.fa", "--refs", "band_refs.fa", "--band", "32",
                     "--gap-open", "-4", "--gap-read", "-1", "--gap-ref", "-1"],
+    "band_blosum62": ["--reads", "prot_reads.fa", "--refs", "prot_refs.fa", "--band", "32",
+                      "--matrix", "blosum62", "--gap-open", "-11", "--gap-read", "-1",
+                      "--gap-ref", "-1", "--sam"],
     "pssm": ["--pssm-from", "motifs.fa", "--panel", "pool.fa", "--top", "5", "--stats",
              "--stats-samples", "32"],
     "translated": ["--translated", "--reads", "tr_reads.fa", "--panel", "tr_panel.fa"],
@@ -3495,7 +3535,19 @@ def phase_cli(rng) -> dict:
         kernels = _zero_launches()
         t0 = time.perf_counter()
         for mode, args in CLI_MODES.items():
+            before = {k: v.launches for k, v in kernels.items()}
+            t_mode = time.perf_counter()
             run_cli(cli_args(args, d) + ["--outdir", str(root / "card" / mode)])
+            if mode == "band_blosum62":
+                # The CLI's route to the BLOSUM62 branches of B5 and B6.
+                torch.cuda.synchronize()
+                t_mode = 1e3 * (time.perf_counter() - t_mode)
+                banded = {k: kernels[k].launches - before[k]
+                          for k in ("banded_score", "banded_align", "banded_walk")}
+                if not (banded["banded_score"] or banded["banded_align"]):
+                    raise AssertionError(f"cli band_blosum62 launched no banded kernel: {banded}")
+                log(f"[cli] band_blosum62 on the card: wall {t_mode:.3f} ms, launches {banded}")
+                out["band_blosum62"] = {"wall_ms": t_mode, "launches": banded}
         bench = run_cli(["--selftest", "--bench", "--outdir", str(root / "card" / "selftest")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -4557,10 +4609,11 @@ def main() -> int:
                           if sets[p].affine == sets[name].affine)
                 for name in ("dna_default", "dna_affine_bwamem")}
     for name in ("dna_default", "dna_affine_bwamem"):
-        launches[f"banded:{name}"] = sum(v["walk_launches"] for v in banded_runs.values()
-                                         if isinstance(v, dict) and v["params"] == name)
-        splits[f"banded:{name}"] = {k: v["align_split"] for k, v in banded_runs.items()
-                                    if isinstance(v, dict) and v["params"] == name}
+        # B9 walks every linear-gap model's pairs, B10 every affine one's.
+        same_gaps = {k: v for k, v in banded_runs.items() if isinstance(v, dict)
+                     and sets[v["params"]].affine == sets[name].affine}
+        launches[f"banded:{name}"] = sum(v["walk_launches"] for v in same_gaps.values())
+        splits[f"banded:{name}"] = {k: v["align_split"] for k, v in same_gaps.items()}
     launches["banded:dna_default"] += longreads["walk_launches"]
     splits["banded:dna_default"].update(map_long_reads=longreads["split"],
                                         long_round=long_round)

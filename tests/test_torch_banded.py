@@ -3,7 +3,8 @@
 (``ops/plain_banded.py``, reached through ``banded_score_batch`` /
 ``banded_align_batch(device="cpu")`` and the native banded walk) against
 ``banded_score_oracle`` / ``banded_align_oracle`` in every branch (SW / NW x
-linear / affine x DNA / BLOSUM62 x both tie flavors), against the Pallas
+linear / affine x DNA / BLOSUM62 x both tie flavors), the port's copies of
+those oracles against the JAX package's, against the Pallas
 banded kernels in interpret mode once per (algorithm, gap model), the full
 band against the port's dense path, and ``AlignmentModel`` against the JAX
 models."""
@@ -25,7 +26,8 @@ from versalignlib_tpu.types import TieBreak as JaxTieBreak
 from versalignlib_tpu_torch import AlignmentEngine, models, params_from_reference
 from versalignlib_tpu_torch.ops import cuda_banded, plain_banded
 from versalignlib_tpu_torch.ops.banded import (band_offsets, banded_align_batch,
-                                               banded_score_batch)
+                                               banded_align_oracle, banded_score_batch,
+                                               banded_score_oracle)
 from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
 #: (name, JAX parameters): DNA linear (the reference default), DNA affine
@@ -97,6 +99,34 @@ def test_plain_align_matches_oracle(pset, tie, algorithm, shape, band, tile):
                                            offs, tie=JaxTieBreak(int(tie)))
             for r, f in zip(reads, refs)]
     assert [_fields(g) for g in got] == [_fields(w) for w in want]
+
+
+@pytest.mark.parametrize("pset", list(_SETS))
+@pytest.mark.parametrize("tie", list(TieBreak))
+@pytest.mark.parametrize("algorithm", list(Algorithm))
+def test_oracles_match_jax(pset, tie, algorithm):
+    """The port's numpy banded oracles equal the JAX package's: with the
+    default offsets and explicit (jittered) ones, with and without the
+    texts, and at a band wider than the ref."""
+    jp, p = _SETS[pset]
+    jalg, jtie = JaxAlgorithm(int(algorithm)), JaxTieBreak(int(tie))
+    rng = np.random.default_rng(900 + 8 * list(_SETS).index(pset) + 2 * int(tie) + int(algorithm))
+    for (b, m, n), band in (((3, 30, 36), 12), ((3, 24, 20), 8), ((2, 12, 9), 16)):
+        reads, refs = _codes(rng, pset, b, m), _codes(rng, pset, b, n)
+        reads[0, -1] = 0   # a padded last row
+        jitter = rng.integers(-3, 4, m) + band_offsets(m, m, n, min(band, n))
+        jitter = np.clip(jitter, 0, max(n - band, 0)).astype(np.int32)
+        for r, f in zip(reads, refs):
+            texts = {"read_text": "".join(rng.choice(list("acgtnXY"), m)),
+                     "ref_text": "".join(rng.choice(list("acgtnXY"), n))}
+            for offs in (None, jitter):
+                assert banded_score_oracle(r, f, p, band, algorithm, offs) == \
+                    jax_banded.banded_score_oracle(r, f, jp, band, jalg, offs)
+                for kw in ({}, texts):
+                    got = banded_align_oracle(r, f, p, band, algorithm, offs, tie=tie, **kw)
+                    want = jax_banded.banded_align_oracle(r, f, jp, band, jalg, offs,
+                                                          tie=jtie, **kw)
+                    assert _fields(got) == _fields(want)
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,9 @@
 on the port's side, ``--backend oracle`` on the JAX side). Where the JAX
 CLI would reach a Pallas kernel in interpret mode (``--band``, ``--long``,
 the winners' alignment of ``--translated``), it runs that kernel's plain
-reference from the JAX package instead, the definition its own tests hold
-the kernel to. Also: the ``oracle`` backend against the JAX package's, and
+reference instead, the definition its own tests hold the kernel to: the
+JAX package's dense oracles, and the port's copies of its banded oracles
+(each call's first pair held == the JAX package's). Also: the ``oracle`` backend against the JAX package's, and
 the CLI's refusals."""
 
 import contextlib
@@ -32,6 +33,7 @@ from versalignlib_tpu.types import TieBreak as JaxTieBreak
 from versalignlib_tpu_torch import AlignmentEngine, AlignmentParameters, cli, dispatch
 from versalignlib_tpu_torch.alphabet import blosum62
 from versalignlib_tpu_torch.models.base import AlignmentModel
+from versalignlib_tpu_torch.ops.banded import banded_align_oracle, banded_score_oracle
 from versalignlib_tpu_torch.types import Algorithm, TieBreak
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -45,16 +47,25 @@ def inputs(tmp_path_factory):
 
 
 def _banded_score_oracle(reads, refs, params, algorithm, band=512, tile=256, interpret=None):
+    """The port's ``banded_score_oracle`` over the batch; its first pair
+    also == the JAX package's."""
     band = min(band, refs.shape[1])
-    return np.array([jax_banded.banded_score_oracle(r, f, params, band, algorithm)
-                     for r, f in zip(reads, refs)], dtype=np.int32)
+    out = np.array([banded_score_oracle(r, f, params, band, algorithm)
+                    for r, f in zip(reads, refs)], dtype=np.int32)
+    assert out[0] == jax_banded.banded_score_oracle(reads[0], refs[0], params, band, algorithm)
+    return out
 
 
 def _banded_align_oracle(reads, refs, params, algorithm, band=512, tile=64, interpret=None,
                          raw=False, chunk_blocks=None, tie=None, device_walk=None):
+    """The port's ``banded_align_oracle`` over the batch; its first pair
+    also == the JAX package's."""
     band = min(band, refs.shape[1])
-    return [jax_banded.banded_align_oracle(r, f, params, band, algorithm, tie=tie)
-            for r, f in zip(reads, refs)]
+    out = [banded_align_oracle(r, f, params, band, algorithm, tie=tie)
+           for r, f in zip(reads, refs)]
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(
+        jax_banded.banded_align_oracle(reads[0], refs[0], params, band, algorithm, tie=tie))
+    return out
 
 
 def _dense_align_oracle(reads, refs, params, algorithm, tie=JaxTieBreak.DIAG_UP_LEFT,

@@ -3,7 +3,7 @@ with ``==``: minimizers, the chunked index build and chaining array for
 array, the ``MinimizerIndex`` npz in both directions, and
 ``map_long_reads(device="cpu")`` against ``map_long_reads(interpret=True)``
 field by field (tests/test_longread.py:78-93's size), and at the default
-pad and band slack against the JAX path extended by its banded oracle."""
+pad and band slack against the JAX path extended by the banded oracle."""
 
 import dataclasses
 
@@ -18,6 +18,7 @@ from versalignlib_tpu.ops import banded as jax_banded
 from versalignlib_tpu.params import AlignmentParameters as JaxParams
 from versalignlib_tpu_torch import (AlignmentParameters, MinimizerIndex, build_index,
                                     find_chains, map_long_reads, minimizers)
+from versalignlib_tpu_torch.ops.banded import banded_align_oracle
 
 _BASES = np.array(list("ACGT"))
 
@@ -125,14 +126,19 @@ def test_map_long_reads_defaults_match_jax(monkeypatch):
     # and the bands (192, 256) the path runs with. The Pallas interpreter
     # takes minutes there, so the JAX side extends through
     # banded_align_oracle, the definition its banded kernel is held to
-    # (tests/test_banded.py); bucketing, windows and decoding stay its own.
+    # (tests/test_banded.py): the port's copy of it, held == the JAX
+    # package's on each call's first pair; bucketing, windows and decoding
+    # stay the JAX side's own.
     genome, _, reads = _long_reads_case()
     shapes = []
 
     def oracle_batch(rd, fd, params, algorithm, band, tie=None, interpret=None):
         shapes.append((rd.shape[1], band))
-        return [jax_banded.banded_align_oracle(r, f, params, band, algorithm, tie=tie)
-                for r, f in zip(rd, fd)]
+        out = [banded_align_oracle(r, f, params, band, algorithm, tie=tie)
+               for r, f in zip(rd, fd)]
+        assert dataclasses.asdict(out[0]) == dataclasses.asdict(
+            jax_banded.banded_align_oracle(rd[0], fd[0], params, band, algorithm, tie=tie))
+        return out
 
     monkeypatch.setattr(jax_banded, "banded_align_batch", oracle_batch)
     want = jax_longread.map_long_reads(reads, [genome], JaxParams())

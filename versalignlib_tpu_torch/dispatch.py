@@ -114,8 +114,8 @@ class AlignmentEngine:
         backend: str = "auto",
         tie: TieBreak = TieBreak.DIAG_UP_LEFT,
         device: torch.device | str = "cuda",
-        device_walk: bool | None = None,
         mesh=None,
+        device_walk: bool | None = None,
     ) -> None:
         """``device``: ``"cuda"`` (default; raises without a card) or
         ``"cpu"`` for the plain PyTorch path. ``device_walk``: the traceback

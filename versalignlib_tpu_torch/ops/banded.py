@@ -1,6 +1,7 @@
 """Banded DP for long pairs (10-100 kbp): the counterpart of
 ``versalignlib_tpu/ops/banded.py`` (``banded_score_batch``,
-``banded_align_batch``).
+``banded_align_batch``, and the numpy definitions of the banded semantics,
+``banded_score_oracle`` and ``banded_align_oracle``).
 
 A diagonal band of ``band`` columns follows the main diagonal with per-row
 start ``o(i) = clamp(i*n//m - band/2, 0, n - band)``; cells outside it are
@@ -18,15 +19,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from versalignlib_tpu_torch.alphabet import make_validity, substitution_scores
 from versalignlib_tpu_torch.dispatch import _resolve_device
 from versalignlib_tpu_torch.native import decode_banded_native
 from versalignlib_tpu_torch.ops import cuda_banded, cuda_walk
 from versalignlib_tpu_torch.ops import traceback as tb
 from versalignlib_tpu_torch.ops import walk as walks
 from versalignlib_tpu_torch.ops.cuda_align import last_valid_pos as _last_valid_pos
+from versalignlib_tpu_torch.ops.oracle import _text_from_codes
+from versalignlib_tpu_torch.ops.plain import NEG_INF
 from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK, nw_end_cells
 from versalignlib_tpu_torch.params import AlignmentParameters
-from versalignlib_tpu_torch.types import Algorithm, AlignmentBatch, TieBreak
+from versalignlib_tpu_torch.types import (Algorithm, Alignment, AlignmentBatch, TieBreak,
+                                          Trace, cigar_from_gapped)
 
 
 def band_offsets(m_pad: int, m_real: int, n: int, band: int) -> np.ndarray:
@@ -52,6 +57,279 @@ def last_valid_pos(codes: np.ndarray, valid=None) -> int:
     codes = np.asarray(codes)
     inv = np.flatnonzero(codes == 0 if valid is None else ~valid(codes))
     return int(inv[0]) - 1 if inv.size else codes.size - 1
+
+
+# ---------------------------------------------------------------------------
+# NumPy banded oracle (semantics definition): the port's copy of the JAX
+# package's, numpy only
+# ---------------------------------------------------------------------------
+
+def banded_score_oracle(read, ref, p: AlignmentParameters, band: int,
+                        algorithm: Algorithm,
+                        offsets: np.ndarray | None = None) -> int:
+    """Reference banded score: full-matrix DP with -inf outside the band.
+
+    Row 0 and (for band windows touching it) column 0 are 0 — the same free
+    boundaries as the dense kernels, restricted to the band.
+    """
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    m, n = read.size, ref.size
+    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
+    if offsets is None:
+        offsets = band_offsets(m, m, n, band)
+    band = min(band, n)
+    NEG = np.int64(NEG_INF)
+    h = np.zeros((m + 1, n + 1), dtype=np.int64)
+    f = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    best = np.int64(0)
+    last_col = np.int64(NEG)
+    for i in range(1, m + 1):
+        o = int(offsets[i - 1])
+        prev = h[i - 1]
+        f_prev = f[i - 1]
+        row = np.full(n + 1, NEG, dtype=np.int64)
+        f_row = np.full(n + 1, NEG, dtype=np.int64)
+        row[0] = 0
+        lo, hi = o + 1, min(o + band, n)  # H columns in band
+        sub = substitution_scores(
+            read[i - 1], ref[lo - 1 : hi], p.score_match, p.score_mismatch,
+            p.matrix,
+        ).astype(np.int64)
+        e = NEG
+        for j in range(lo, hi + 1):
+            diag = prev[j - 1] + sub[j - lo]
+            if p.affine:
+                f_row[j] = max(prev[j] + p.gap_open_ref + p.score_gap_ref,
+                               f_prev[j] + p.score_gap_ref, NEG)
+                e = max(row[j - 1] + p.gap_open_read + p.score_gap_read,
+                        e + p.score_gap_read, NEG)
+                cur = max(diag, f_row[j], e)
+            else:
+                up = prev[j] + p.score_gap_ref
+                left = row[j - 1] + p.score_gap_read
+                cur = max(diag, up, left)
+            cur = max(cur, NEG)
+            if local:
+                cur = max(cur, 0)
+                best = max(best, cur)
+            row[j] = cur
+        h[i] = row
+        f[i] = f_row
+        if not local and hi == n:
+            last_col = max(last_col, row[n])
+    if local:
+        return int(best)
+    final = max(int(h[m].max()), int(last_col), 0)
+    return final
+
+
+def banded_align_oracle(read, ref, p: AlignmentParameters, band: int,
+                        algorithm: Algorithm,
+                        offsets: np.ndarray | None = None,
+                        read_text: str | None = None,
+                        ref_text: str | None = None,
+                        tie=None):
+    """Reference banded ALIGNMENT: full-matrix DP with -inf outside the band,
+    canonical pointer flavor, explicit end-cell rules. This is the semantics
+    definition; ``ops/plain_banded.py`` and the kernels compute the same
+    alignments in their band-relative layout (the reference has no banding;
+    its only long-pair strategy is spilling the pointer matrix to global
+    memory, alignment_kernels.cl:10-12). The pointer matrix here stays dense
+    over the whole (m + 1, n + 1) grid, as in the JAX package's oracle.
+
+    Boundaries are the banded-score oracle's (row 0 / col 0 free). Pointer
+    model: canonical flavor (``tie`` None/DIAG_UP_LEFT) linear DIAG > UP >
+    LEFT with SW zero-force; affine 4-bit ``hptr | e_ext<<2 | f_ext<<3``
+    with extend-beats-open ties (ops/gotoh.py). SSE flavor
+    (``TieBreak.DIAG_LEFT_UP``): validity-gated DIAG > LEFT > UP (affine:
+    DIAG > LEFT(E) > UP(F)), no SW zero-force, and validity-flavored NW
+    end-cell tracking — the banded extension of the dense SSE rules
+    (oracle._pointers / gotoh._affine_pointers).
+
+    End cells:
+      - SW: first in-band cell (row-major) attaining the global clamped max;
+        (0, 0) when the max is 0 (the reference's argmax-initial cell).
+      - NW (overlap): row = last valid read row ``mrp`` (code != 0 flavor);
+        column = leftmost argmax over that row's band cells at valid ref
+        positions (<= max_ref_pos) — the banded analogue of the dense
+        ``(max_read_pos, min(max_ref_pos, globalRowMaxIndex))`` rule
+        (DefaultKernel.cpp:285-388) that keeps tracebacks off padding
+        rows/columns. Empty intersection (or mrp < 0) -> empty alignment.
+
+    The walk stops at START pointers, at the free row-0/col-0 boundaries,
+    and when stepping outside the band.
+    """
+    read = np.asarray(read, dtype=np.int32)
+    ref = np.asarray(ref, dtype=np.int32)
+    m, n = read.size, ref.size
+    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
+    canonical = tie is None or TieBreak(tie) == TieBreak.DIAG_UP_LEFT
+    vfn = make_validity(p.matrix)
+    rvalid = vfn(read)
+    fvalid = vfn(ref)
+    if offsets is None:
+        offsets = band_offsets(m, m, n, band)
+    band = min(band, n)
+    affine = p.affine
+    NEG = np.int64(NEG_INF)
+    D, U, L, S = 3, 1, 2, 0  # Trace.DIAG/UP/LEFT/START
+
+    h = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    h[0, :] = 0
+    h[:, 0] = 0
+    f = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    ptr = np.zeros((m + 1, n + 1), dtype=np.uint8)
+    for i in range(1, m + 1):
+        o = int(offsets[i - 1])
+        lo, hi = o + 1, min(o + band, n)
+        sub_row = substitution_scores(
+            read[i - 1], ref[lo - 1 : hi], p.score_match, p.score_mismatch,
+            p.matrix,
+        ).astype(np.int64)
+        e = NEG
+        for j in range(lo, hi + 1):
+            diag_v = h[i - 1, j - 1] + sub_row[j - lo]
+            if affine:
+                f_prev = f[i - 1, j]
+                f_v = max(h[i - 1, j] + p.gap_open_ref + p.score_gap_ref,
+                          f_prev + p.score_gap_ref, NEG)
+                e_prev = e
+                e = max(h[i, j - 1] + p.gap_open_read + p.score_gap_read,
+                        e_prev + p.score_gap_read, NEG)
+                cur = max(diag_v, f_v, e)
+            else:
+                up_v = h[i - 1, j] + p.score_gap_ref
+                left_v = h[i, j - 1] + p.score_gap_read
+                cur = max(diag_v, up_v, left_v)
+            cur = max(cur, NEG)
+            if local:
+                cur = max(cur, 0)
+            cell_valid = bool(rvalid[i - 1]) and bool(fvalid[j - 1])
+            if affine:
+                if canonical:
+                    hp = D if cur == diag_v else (U if cur == f_v else
+                                                  (L if cur == e else S))
+                    if local and cur == 0:
+                        hp = S
+                else:
+                    hp = (D if (cur == diag_v and cell_valid) else
+                          (L if cur == e else (U if cur == f_v else S)))
+                e_ext = 1 if e == e_prev + p.score_gap_read else 0
+                f_ext = 1 if f_v == f_prev + p.score_gap_ref else 0
+                ptr[i, j] = hp | (e_ext << 2) | (f_ext << 3)
+                f[i, j] = f_v
+            else:
+                if canonical:
+                    hp = D if cur == diag_v else (U if cur == up_v else
+                                                  (L if cur == left_v else S))
+                    if local and cur == 0:
+                        hp = S
+                else:
+                    hp = (D if (cur == diag_v and cell_valid) else
+                          (L if cur == left_v else (U if cur == up_v else S)))
+                ptr[i, j] = hp
+            h[i, j] = cur
+
+    # In-band mask over inner cells (for end-cell picks and walk bounds).
+    jj = np.arange(1, n + 1)[None, :]
+    oo = np.asarray(offsets[:m], dtype=np.int64)[:, None]
+    in_band = (jj >= oo + 1) & (jj <= np.minimum(oo + band, n))
+
+    if local:
+        inner = np.where(in_band, h[1:, 1:], -1)
+        best = int(inner.max(initial=0))
+        if best <= 0:
+            start_r, start_f, score = 0, 0, 0
+        else:
+            flat = int(np.argmax(inner))
+            start_r, start_f = divmod(flat, n)
+            score = best
+    else:
+        bvalid = None if canonical else vfn
+        mrp = last_valid_pos(read, bvalid)
+        max_ref_pos = last_valid_pos(ref, bvalid)
+        if mrp < 0:
+            start_r = start_f = -1
+            score = 0
+        else:
+            o = int(offsets[mrp])
+            hi = min(o + band, n, max_ref_pos + 1)
+            if hi <= o:
+                start_r = start_f = -1
+                score = 0
+            else:
+                vals = h[mrp + 1, o + 1 : hi + 1]
+                arg = int(np.argmax(vals))
+                start_r, start_f = mrp, o + arg
+                score = int(vals[arg])
+
+    return _banded_oracle_walk(ptr, in_band, read, ref, start_r, start_f,
+                               score, affine, read_text, ref_text)
+
+
+def _banded_oracle_walk(ptr, in_band, read, ref, start_r, start_f, score,
+                        affine, read_text=None, ref_text=None):
+    """Shared walker over the oracle's dense banded pointer matrix."""
+    m, n = read.shape[0], ref.shape[0]
+    if read_text is None:
+        read_text = _text_from_codes(read)
+    if ref_text is None:
+        ref_text = _text_from_codes(ref)
+    rp, fp = int(start_r), int(start_f)
+    rg, fg = [], []
+    state = 0  # 0=H, 1=F(up), 2=E(left) — affine only
+    steps = 0
+    while steps <= m + n and rp >= 0 and fp >= 0:
+        if not in_band[rp, fp]:
+            break
+        code = int(ptr[rp + 1, fp + 1])
+        hp = code & 3
+        if not affine:
+            if hp == Trace.START:
+                break
+            if hp == Trace.UP:
+                rg.append(read_text[rp]); fg.append("-"); rp -= 1
+            elif hp == Trace.LEFT:
+                rg.append("-"); fg.append(ref_text[fp]); fp -= 1
+            else:
+                rg.append(read_text[rp]); fg.append(ref_text[fp])
+                rp -= 1; fp -= 1
+            steps += 1
+            continue
+        if state == 0:
+            if hp == Trace.START:
+                break
+            if hp == Trace.DIAG:
+                rg.append(read_text[rp]); fg.append(ref_text[fp])
+                rp -= 1; fp -= 1
+                steps += 1
+            elif hp == Trace.UP:
+                state = 1
+            else:
+                state = 2
+        elif state == 1:
+            rg.append(read_text[rp]); fg.append("-")
+            rp -= 1
+            if not ((code >> 3) & 1):
+                state = 0
+            steps += 1
+        else:
+            rg.append("-"); fg.append(ref_text[fp])
+            fp -= 1
+            if not ((code >> 2) & 1):
+                state = 0
+            steps += 1
+    read_g = "".join(reversed(rg))
+    ref_g = "".join(reversed(fg))
+    aln_length = m + n
+    return Alignment(
+        read=read_g, ref=ref_g, score=int(score),
+        cigar=cigar_from_gapped(read_g, ref_g),
+        read_start=rp + 1, read_end=int(start_r) + 1,
+        ref_start=fp + 1, ref_end=int(start_f) + 1,
+        buffer_start=aln_length - 1 - len(rg), buffer_end=aln_length - 1,
+    )
 
 
 def banded_score_batch(

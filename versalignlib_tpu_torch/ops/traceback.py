@@ -4,7 +4,7 @@
 ``ops/cuda_align.py`` uses it only for the degenerate batch with an empty
 read or ref axis, where the walk is boundary-only; every other batch goes
 through the native decoder, with no fallback to this walker, and so do the
-dense pointer codes of :func:`decode_batch`.
+dense pointer codes of :func:`decode_batch` and :func:`decode_batch_affine`.
 """
 
 from __future__ import annotations
@@ -110,6 +110,23 @@ def decode_one(
     )
 
 
+def _decode_dense(codes, affine: bool, *args) -> list[Alignment]:
+    """Dense (B, m, n) codes of DP cells (r+1, c+1), packed into words as
+    the fill packs them (2-bit linear codes 16 a word, 4-bit Gotoh codes 8),
+    walked by the native decoder; ``args`` are ``decode_batch_native``'s
+    after the words."""
+    import torch
+
+    from versalignlib_tpu_torch.native import decode_batch_native
+    from versalignlib_tpu_torch.ops.plain import AFFINE_PACK, PACK, pack_words
+
+    bits, pack = (4, AFFINE_PACK) if affine else (2, PACK)
+    codes = torch.from_numpy(np.array(codes, dtype=np.int64))
+    b, m, n = codes.shape
+    words = pack_words(codes.reshape(b * m, n), bits=bits, pack=pack).reshape(b, m, -1)
+    return decode_batch_native((words.numpy(), pack), *args, affine=affine)
+
+
 def decode_batch(
     ptr_inner: np.ndarray,
     reads: np.ndarray,
@@ -125,13 +142,25 @@ def decode_batch(
     """Decode a batch of dense (B, m, n) uint8 move codes, ``ptr_inner[i,
     r, c]`` that of DP cell (r+1, c+1) (as ``distributed_align_device``
     returns them): packed 16 to a word and walked by the native decoder."""
-    import torch
+    return _decode_dense(ptr_inner, False, reads, refs, start_read_pos, start_ref_pos,
+                         params, algorithm, scores, read_texts, ref_texts)
 
-    from versalignlib_tpu_torch.native import decode_batch_native
-    from versalignlib_tpu_torch.ops.plain import PACK, pack_words
 
-    codes = torch.from_numpy(np.ascontiguousarray(ptr_inner)).to(torch.int64)
-    b, m, n = codes.shape
-    words = pack_words(codes.reshape(b * m, n)).reshape(b, m, -1).numpy()
-    return decode_batch_native((words, PACK), reads, refs, start_read_pos, start_ref_pos,
-                               params, algorithm, scores, read_texts, ref_texts)
+def decode_batch_affine(
+    ptr: np.ndarray,
+    reads: np.ndarray,
+    refs: np.ndarray,
+    start_read_pos: np.ndarray,
+    start_ref_pos: np.ndarray,
+    params: AlignmentParameters,
+    algorithm: Algorithm,
+    scores: np.ndarray,
+    read_texts: list[str] | None = None,
+    ref_texts: list[str] | None = None,
+) -> list[Alignment]:
+    """Decode a batch of dense (B, m, n) uint8 Gotoh codes, ``hptr |
+    e_ext<<2 | f_ext<<3`` for DP cell (r+1, c+1), with the exact end-cell
+    ``scores`` (required): packed 8 to a word as the Gotoh fill packs them
+    and walked by the native decoder's three-state machine."""
+    return _decode_dense(ptr, True, reads, refs, start_read_pos, start_ref_pos, params,
+                         algorithm, scores, read_texts, ref_texts)
