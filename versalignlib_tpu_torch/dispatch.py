@@ -26,6 +26,7 @@ from versalignlib_tpu_torch.alphabet import pad_and_encode
 from versalignlib_tpu_torch.ops import oracle
 from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, AlignmentBatch, TieBreak
+from versalignlib_tpu_torch.utils.profiling import annotate
 
 
 class Backend(Protocol):
@@ -153,16 +154,17 @@ class AlignmentEngine:
         return reads_enc, refs_enc
 
     def score_alignments(self, algorithm: Algorithm, reads, refs) -> np.ndarray:
-        reads_enc, refs_enc = self._prepare(reads, refs)
-        if self.mesh is not None:
-            from versalignlib_tpu_torch.parallel.distributed import distributed_score_batch
+        with annotate("engine.score_alignments"):
+            reads_enc, refs_enc = self._prepare(reads, refs)
+            if self.mesh is not None:
+                from versalignlib_tpu_torch.parallel.distributed import distributed_score_batch
 
-            return distributed_score_batch(reads_enc, refs_enc, self.params, algorithm,
-                                           mesh=self.mesh)
-        return np.asarray(
-            self.backend.score_alignments(algorithm, reads_enc, refs_enc, self.params),
-            dtype=np.int32,
-        )
+                return distributed_score_batch(reads_enc, refs_enc, self.params, algorithm,
+                                               mesh=self.mesh)
+            return np.asarray(
+                self.backend.score_alignments(algorithm, reads_enc, refs_enc, self.params),
+                dtype=np.int32,
+            )
 
     def compute_alignments(
         self, algorithm: Algorithm, reads, refs, raw: bool = False,
@@ -172,25 +174,26 @@ class AlignmentEngine:
         :class:`AlignmentBatch` column store instead of per-pair
         ``Alignment`` objects. ``gapped=False`` (raw only): CIGAR-only
         columns, no gapped strings."""
-        reads_enc, refs_enc = self._prepare(reads, refs)
-        if self.mesh is not None:
-            if raw:
-                raise ValueError("raw alignment batches require the cuda backend "
-                                 "without a mesh")
-            from versalignlib_tpu_torch.parallel.distributed import distributed_align_batch
+        with annotate("engine.compute_alignments"):
+            reads_enc, refs_enc = self._prepare(reads, refs)
+            if self.mesh is not None:
+                if raw:
+                    raise ValueError("raw alignment batches require the cuda backend "
+                                     "without a mesh")
+                from versalignlib_tpu_torch.parallel.distributed import distributed_align_batch
 
-            return distributed_align_batch(reads_enc, refs_enc, self.params, algorithm,
-                                           self.tie, mesh=self.mesh,
-                                           device_walk=self.device_walk)
-        if self.backend.name != "cuda":
-            if raw:
-                raise ValueError("raw alignment batches require the cuda backend")
+                return distributed_align_batch(reads_enc, refs_enc, self.params, algorithm,
+                                               self.tie, mesh=self.mesh,
+                                               device_walk=self.device_walk)
+            if self.backend.name != "cuda":
+                if raw:
+                    raise ValueError("raw alignment batches require the cuda backend")
+                return self.backend.compute_alignments(
+                    algorithm, reads_enc, refs_enc, self.params, self.tie)
             return self.backend.compute_alignments(
-                algorithm, reads_enc, refs_enc, self.params, self.tie)
-        return self.backend.compute_alignments(
-            algorithm, reads_enc, refs_enc, self.params, self.tie,
-            device_walk=self.device_walk, raw=raw, gapped=gapped,
-        )
+                algorithm, reads_enc, refs_enc, self.params, self.tie,
+                device_walk=self.device_walk, raw=raw, gapped=gapped,
+            )
 
 
 class OracleBackend:

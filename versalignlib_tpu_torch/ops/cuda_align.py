@@ -35,6 +35,7 @@ from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.ops.cuda_score import check_codes
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, AlignmentBatch, TieBreak
+from versalignlib_tpu_torch.utils.profiling import annotate, count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -113,6 +114,8 @@ def fill_table(matrix: tuple, canonical: bool, device: torch.device) -> torch.Te
     if not canonical:
         valid = torch.from_numpy(valid_code_mask(matrix))
         table += 3 * (valid[:, None] & valid[None, :]).to(torch.int32)
+    if device.type == "cuda":
+        count("h2d_bytes", table.nbytes)
     return table.to(device)
 
 
@@ -258,14 +261,17 @@ def align_batch(
         r_np = np.ascontiguousarray(reads[lo:lo + chunk_pairs], np.uint8)
         f_np = np.ascontiguousarray(refs[lo:lo + chunk_pairs], np.uint8)
         mrp = last_valid_pos(r_np, tie, params.matrix)
+        mxp = last_valid_pos(f_np, tie, params.matrix) if device_walk else None
+        if device.type == "cuda":
+            count("h2d_bytes", sum(x.nbytes for x in (r_np, f_np, mrp, mxp) if x is not None))
         mrp_dev = torch.from_numpy(mrp).to(device)
         out = fill(torch.from_numpy(r_np).to(device),
                    torch.from_numpy(f_np).to(device), mrp_dev, params, algorithm, tie)
         if device_walk:
             # The walk reads the pointer words where the fill left them; only
             # its records and start cells leave the device.
-            mxp = torch.from_numpy(last_valid_pos(f_np, tie, params.matrix)).to(device)
-            out = cuda_walk.walk(*out, mrp_dev, mxp, n, local, affine)
+            out = cuda_walk.walk(*out, mrp_dev, torch.from_numpy(mxp).to(device), n, local,
+                                 affine)
         done = None
         if device.type == "cuda":
             # Queue the copies back into page-locked memory, so that the
@@ -278,9 +284,7 @@ def align_batch(
         return lo, r_np, f_np, mrp, out, done
 
     def decode(entry):
-        lo, r_np, f_np, mrp, out, done = entry
-        if done is not None:
-            done.synchronize()
+        lo, r_np, f_np, mrp, out, _ = entry
         nb = r_np.shape[0]
         texts = (None if read_texts is None else read_texts[lo:lo + nb],
                  None if ref_texts is None else ref_texts[lo:lo + nb])
@@ -296,15 +300,25 @@ def align_batch(
             (ptr.numpy(), pack), r_np, f_np, start_r, start_f, params,
             algorithm, scores, *texts, affine=affine, raw=raw, gapped=gapped)
 
-    results = []
-    pending = None
-    for lo in range(0, b, chunk_pairs):
-        entry = dispatch(lo)
+    def finish(entry):
+        done = entry[-1]
+        if done is not None:
+            with annotate("align.wait"):
+                done.synchronize()
+        with annotate("align.decode"):
+            return decode(entry)
+
+    with annotate("align.batch"):
+        results = []
+        pending = None
+        for lo in range(0, b, chunk_pairs):
+            with annotate("align.dispatch"):
+                entry = dispatch(lo)
+            if pending is not None:
+                results.append(finish(pending))
+            pending = entry
         if pending is not None:
-            results.append(decode(pending))
-        pending = entry
-    if pending is not None:
-        results.append(decode(pending))
-    if raw:
-        return AlignmentBatch.concat(results)
-    return [a for chunk in results for a in chunk]
+            results.append(finish(pending))
+        if raw:
+            return AlignmentBatch.concat(results)
+        return [a for chunk in results for a in chunk]

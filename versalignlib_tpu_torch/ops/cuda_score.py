@@ -29,6 +29,7 @@ from versalignlib_tpu_torch.ops.cuda_search import (LANES, PAIRS_PER_BLOCK, SMEM
                                                     kernel_table)
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm
+from versalignlib_tpu_torch.utils.profiling import annotate, count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -122,34 +123,36 @@ def score_batch_device(reads: torch.Tensor, refs: torch.Tensor,
     check_codes(reads, refs)
     b, m = reads.shape
     n = refs.shape[1]
-    if m == 0 or n == 0:
-        return torch.zeros(b, dtype=torch.int32, device=reads.device)
-    if reads.device.type == "cpu":
-        return plain.score_batch(reads, refs, params, algorithm)
-    if b == 0:
-        return torch.zeros(0, dtype=torch.int32, device=reads.device)
-    dev = reads.device
-    reads = reads.contiguous()
-    refs = refs.contiguous()
-    table, tables, s = score_tables(params, dev)
-    plan = launch_plan(m, n, params.affine, None if table is None else s)
-    edge = None
-    if plan.edge_in_device:
-        slots = -(-b // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
-        edge = torch.empty((slots, m, 2 if params.affine else 1), dtype=torch.int32,
-                           device=dev)
-    out = torch.empty(b, dtype=torch.int32, device=dev)
+    count("cells.score", b * m * n)
+    with annotate("score.launch"):
+        if m == 0 or n == 0:
+            return torch.zeros(b, dtype=torch.int32, device=reads.device)
+        if reads.device.type == "cpu":
+            return plain.score_batch(reads, refs, params, algorithm)
+        if b == 0:
+            return torch.zeros(0, dtype=torch.int32, device=reads.device)
+        dev = reads.device
+        reads = reads.contiguous()
+        refs = refs.contiguous()
+        table, tables, s = score_tables(params, dev)
+        plan = launch_plan(m, n, params.affine, None if table is None else s)
+        edge = None
+        if plan.edge_in_device:
+            slots = -(-b // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
+            edge = torch.empty((slots, m, 2 if params.affine else 1), dtype=torch.int32,
+                               device=dev)
+        out = torch.empty(b, dtype=torch.int32, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    SCORE_KERNEL.launch(
-        reads.data_ptr(), refs.data_ptr(), ptr(table), ptr(tables), ptr(edge),
-        out.data_ptr(), b, m, n, s, params.score_gap_read, params.score_gap_ref,
-        params.gap_open_read, params.gap_open_ref,
-        int(Algorithm(algorithm) == Algorithm.SMITH_WATERMAN), int(params.affine), plan.cols,
-        plan.sub, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
-    return out
+        SCORE_KERNEL.launch(
+            reads.data_ptr(), refs.data_ptr(), ptr(table), ptr(tables), ptr(edge),
+            out.data_ptr(), b, m, n, s, params.score_gap_read, params.score_gap_ref,
+            params.gap_open_read, params.gap_open_ref,
+            int(Algorithm(algorithm) == Algorithm.SMITH_WATERMAN), int(params.affine),
+            plan.cols, plan.sub, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+        return out
 
 
 class CudaScorer:
@@ -161,8 +164,13 @@ class CudaScorer:
 
     def __call__(self, reads: np.ndarray, refs: np.ndarray,
                  params: AlignmentParameters, algorithm: Algorithm) -> np.ndarray:
-        out = score_batch_device(
-            torch.from_numpy(np.ascontiguousarray(reads, np.uint8)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(refs, np.uint8)).to(self.device),
-            params, Algorithm(algorithm))
-        return out.cpu().numpy()
+        reads = np.ascontiguousarray(reads, np.uint8)
+        refs = np.ascontiguousarray(refs, np.uint8)
+        with annotate("score.h2d"):
+            if self.device.type == "cuda":
+                count("h2d_bytes", reads.nbytes + refs.nbytes)
+            reads_dev = torch.from_numpy(reads).to(self.device)
+            refs_dev = torch.from_numpy(refs).to(self.device)
+        out = score_batch_device(reads_dev, refs_dev, params, Algorithm(algorithm))
+        with annotate("score.d2h"):
+            return out.cpu().numpy()

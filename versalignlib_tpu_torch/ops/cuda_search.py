@@ -27,6 +27,7 @@ from versalignlib_tpu_torch.ops import plain
 from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm
+from versalignlib_tpu_torch.utils.profiling import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -97,8 +98,10 @@ def dna_byte_table_words(match: int, mismatch: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def dna_byte_tables(params: AlignmentParameters, device: torch.device) -> torch.Tensor:
     """:func:`dna_byte_table_words` of the parameters, on ``device``."""
-    return torch.from_numpy(dna_byte_table_words(params.score_match,
-                                                 params.score_mismatch)).to(device)
+    words = dna_byte_table_words(params.score_match, params.score_mismatch)
+    if device.type == "cuda":
+        count("h2d_bytes", words.nbytes)
+    return torch.from_numpy(words).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +111,10 @@ def kernel_table(params: AlignmentParameters, device: torch.device) -> torch.Ten
     code outside [0, S) reads as code 0."""
     table = (base_score_matrix(params.score_match, params.score_mismatch)
              if params.matrix is None else params.matrix)
-    return torch.tensor(table, dtype=torch.int32).to(device)
+    table = torch.tensor(table, dtype=torch.int32)
+    if device.type == "cuda":
+        count("h2d_bytes", table.nbytes)
+    return table.to(device)
 
 
 def _check_pool(pool: torch.Tensor) -> None:

@@ -28,6 +28,7 @@ from versalignlib_tpu_torch.ops.cuda_score import score_batch_device
 from versalignlib_tpu_torch.parallel.mesh import Mesh, make_mesh
 from versalignlib_tpu_torch.params import AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, TieBreak
+from versalignlib_tpu_torch.utils.profiling import count
 
 
 def shard_rows(x: np.ndarray, size: int, min_per: int = 1) -> list[np.ndarray]:
@@ -46,7 +47,10 @@ def put(x: np.ndarray, device: torch.device) -> torch.Tensor:
     pageable memory, which the host waits for (kernels already queued on
     other cards keep running)."""
     t = torch.from_numpy(np.ascontiguousarray(x))
-    return t if device.type == "cpu" else t.to(device)
+    if device.type == "cpu":
+        return t
+    count("h2d_bytes", t.nbytes)
+    return t.to(device)
 
 
 def put_shards(x: np.ndarray, mesh: Mesh) -> list[torch.Tensor]:

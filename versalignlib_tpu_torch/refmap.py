@@ -31,6 +31,7 @@ from versalignlib_tpu_torch.search import (NEG32, _align_pairs, _check_budget, _
                                            _encode, _mapq_from_gap, _Reads,
                                            unmapped_alignment)
 from versalignlib_tpu_torch.types import Algorithm, Alignment, TieBreak
+from versalignlib_tpu_torch.utils.profiling import annotate
 
 #: Minimum top-k pool per read; map_to_reference widens it to twice the
 #: same-locus window distance, so the pool always keeps a distinct-locus
@@ -121,11 +122,12 @@ def _stream_topk(reads_enc, windows, params, algorithm, device, chunk, k: int = 
     for lo in range(0, r, chunk):
         pc = windows[lo:lo + chunk]
         top_v, top_a = reads.topk(pc, min(k, pc.shape[0]))
-        cand_v = np.concatenate([vals, top_v], axis=1)
-        cand_a = np.concatenate([args, top_a + lo], axis=1)
-        order = np.lexsort((cand_a, -cand_v), axis=1)[:, :k]
-        vals = np.take_along_axis(cand_v, order, axis=1)
-        args = np.take_along_axis(cand_a, order, axis=1)
+        with annotate("search.merge"):
+            cand_v = np.concatenate([vals, top_v], axis=1)
+            cand_a = np.concatenate([args, top_a + lo], axis=1)
+            order = np.lexsort((cand_a, -cand_v), axis=1)[:, :k]
+            vals = np.take_along_axis(cand_v, order, axis=1)
+            args = np.take_along_axis(cand_a, order, axis=1)
     return vals.astype(np.int32), args.astype(np.int32)
 
 
@@ -191,72 +193,78 @@ def map_to_reference(
     "panel"`` shards the window axis over the mesh, with each device's
     top-k taken on the device, for when the tiled genome dominates memory.
     """
-    if params.matrix is not None and both_strands:
-        raise ValueError("both_strands mapping is DNA-only (custom "
-                         "substitution matrices have no complement)")
-    reads_enc = _encode(reads)
-    b, m = reads_enc.shape
-    if isinstance(references, WindowIndex):
-        index = references
-    else:
-        if window is None:
-            window = max(128, -(-4 * m // 128) * 128)
-        if stride is None:
-            stride = window // 2
-        index = tile_references(references, window, stride)
-    overlap = index.window - index.stride
-    if overlap < min(2 * m, index.stride):
-        warnings.warn(
-            f"window-stride overlap {overlap} < 2x read length {2 * m}: "
-            f"alignments spanning more than {overlap}bp of reference may "
-            "straddle every window and score low", stacklevel=2)
-    device = _resolve_placement(device, mesh)
-    n_w = len(index)
-    if b == 0 or n_w == 0:
-        return ReferenceHits(np.full(b, -1, np.int32), np.zeros(b, np.int64),
-                             np.full(b, NEG32, np.int32), np.zeros(b, np.int8),
-                             np.zeros(b, np.uint8),
-                             [unmapped_alignment() for _ in range(b)] if align else None)
-    algorithm = Algorithm(algorithm)
-    chunk = _chunk_for(b, n_w, max_pairs)
-    _check_budget(m, index.window, b * chunk, params.affine, device, mesh)
-    # Windows of one reference closer than this overlap the winner's locus;
-    # the pool must be wide enough to keep a distinct candidate past up to
-    # 2 * (min_dist - 1) overlap neighbours.
-    min_dist = -(-index.window // index.stride)
-    k = max(TOPK, 2 * min_dist)
-    vals, args = _stream_topk(reads_enc, index.windows, params, algorithm,
-                              device, chunk, k, mesh, panel_axis)
-    if both_strands:
-        rc_enc = reverse_complement_codes(reads_enc)
-        rc_vals, rc_args = _stream_topk(rc_enc, index.windows, params, algorithm,
-                                        device, chunk, k, mesh, panel_axis)
-        rev = rc_vals[:, 0] > vals[:, 0]     # strict >: forward wins ties
-        # The distinct-locus second best takes candidates from both
-        # orientations relative to the winning orientation's locus.
-        all_vals = np.concatenate([vals, rc_vals], axis=1)
-        all_args = np.concatenate([args, rc_args], axis=1)
-        win_arg = np.where(rev, rc_args[:, 0], args[:, 0])
-        second = _second_distinct(all_vals, all_args, win_arg, index.ref_id, min_dist)
-        best = np.where(rev, rc_vals[:, 0], vals[:, 0])
-        arg = win_arg
-        strand = rev.astype(np.int8)
-        oriented = np.where(rev[:, None], rc_enc, reads_enc)
-    else:
-        best = vals[:, 0]
-        arg = args[:, 0]
-        second = _second_distinct(vals, args, args[:, 0], index.ref_id, min_dist)
-        strand = np.zeros(b, dtype=np.int8)
-        oriented = reads_enc
-    mapq = _mapq_from_gap(best, second, params)
-    alns = None
-    if align:
-        alns = _align_pairs(oriented, index.windows[arg], params, algorithm, tie,
-                            backend, device, mesh)
-        # Window-relative coordinates to global reference coordinates.
-        alns = [dataclasses.replace(a, ref_start=a.ref_start + int(index.start[w]),
-                                    ref_end=a.ref_end + int(index.start[w]))
-                for a, w in zip(alns, arg)]
-    return ReferenceHits(index.ref_id[arg].astype(np.int32),
-                         index.start[arg].astype(np.int64),
-                         best.astype(np.int32), strand, mapq, alns)
+    with annotate("refmap.map_to_reference"):
+        if params.matrix is not None and both_strands:
+            raise ValueError("both_strands mapping is DNA-only (custom "
+                             "substitution matrices have no complement)")
+        reads_enc = _encode(reads)
+        b, m = reads_enc.shape
+        if isinstance(references, WindowIndex):
+            index = references
+        else:
+            if window is None:
+                window = max(128, -(-4 * m // 128) * 128)
+            if stride is None:
+                stride = window // 2
+            index = tile_references(references, window, stride)
+        overlap = index.window - index.stride
+        if overlap < min(2 * m, index.stride):
+            warnings.warn(
+                f"window-stride overlap {overlap} < 2x read length {2 * m}: "
+                f"alignments spanning more than {overlap}bp of reference may "
+                "straddle every window and score low", stacklevel=2)
+        device = _resolve_placement(device, mesh)
+        n_w = len(index)
+        if b == 0 or n_w == 0:
+            return ReferenceHits(np.full(b, -1, np.int32), np.zeros(b, np.int64),
+                                 np.full(b, NEG32, np.int32), np.zeros(b, np.int8),
+                                 np.zeros(b, np.uint8),
+                                 [unmapped_alignment() for _ in range(b)] if align else None)
+        algorithm = Algorithm(algorithm)
+        chunk = _chunk_for(b, n_w, max_pairs)
+        _check_budget(m, index.window, b * chunk, params.affine, device, mesh)
+        # Windows of one reference closer than this overlap the winner's locus;
+        # the pool must be wide enough to keep a distinct candidate past up to
+        # 2 * (min_dist - 1) overlap neighbours.
+        min_dist = -(-index.window // index.stride)
+        k = max(TOPK, 2 * min_dist)
+        with annotate("refmap.search"):
+            vals, args = _stream_topk(reads_enc, index.windows, params, algorithm,
+                                      device, chunk, k, mesh, panel_axis)
+        if both_strands:
+            rc_enc = reverse_complement_codes(reads_enc)
+            with annotate("refmap.search"):
+                rc_vals, rc_args = _stream_topk(rc_enc, index.windows, params, algorithm,
+                                                device, chunk, k, mesh, panel_axis)
+        with annotate("refmap.rank"):
+            if both_strands:
+                rev = rc_vals[:, 0] > vals[:, 0]     # strict >: forward wins ties
+                # The distinct-locus second best takes candidates from both
+                # orientations relative to the winning orientation's locus.
+                all_vals = np.concatenate([vals, rc_vals], axis=1)
+                all_args = np.concatenate([args, rc_args], axis=1)
+                win_arg = np.where(rev, rc_args[:, 0], args[:, 0])
+                second = _second_distinct(all_vals, all_args, win_arg, index.ref_id, min_dist)
+                best = np.where(rev, rc_vals[:, 0], vals[:, 0])
+                arg = win_arg
+                strand = rev.astype(np.int8)
+                oriented = np.where(rev[:, None], rc_enc, reads_enc)
+            else:
+                best = vals[:, 0]
+                arg = args[:, 0]
+                second = _second_distinct(vals, args, args[:, 0], index.ref_id, min_dist)
+                strand = np.zeros(b, dtype=np.int8)
+                oriented = reads_enc
+            mapq = _mapq_from_gap(best, second, params)
+        alns = None
+        if align:
+            alns = _align_pairs(oriented, index.windows[arg], params, algorithm, tie,
+                                backend, device, mesh)
+            with annotate("refmap.shift"):
+                # Window-relative coordinates to global reference coordinates.
+                alns = [dataclasses.replace(a, ref_start=a.ref_start + int(index.start[w]),
+                                            ref_end=a.ref_end + int(index.start[w]))
+                        for a, w in zip(alns, arg)]
+        return ReferenceHits(index.ref_id[arg].astype(np.int32),
+                             index.start[arg].astype(np.int64),
+                             best.astype(np.int32), strand, mapq, alns)

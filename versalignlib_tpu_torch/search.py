@@ -35,6 +35,7 @@ from versalignlib_tpu_torch.parallel.mesh import Mesh
 from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, TieBreak
 from versalignlib_tpu_torch.utils.capabilities import check_search_budget
+from versalignlib_tpu_torch.utils.profiling import annotate
 
 NEG32 = np.iinfo(np.int32).min
 
@@ -82,10 +83,11 @@ class _Reads:
         self.params, self.algorithm = params, algorithm
         self.mesh = mesh if mesh is not None else Mesh((device,))
         self.panel_sharded = panel_axis == "panel"
-        if self.panel_sharded:
-            self.shards = self._replicas(reads_enc)
-        else:
-            self.shards = put_shards(reads_enc, self.mesh)
+        with annotate("search.stage"):
+            if self.panel_sharded:
+                self.shards = self._replicas(reads_enc)
+            else:
+                self.shards = put_shards(reads_enc, self.mesh)
 
     def _replicas(self, x: np.ndarray) -> list[torch.Tensor]:
         """``x`` on every device of the mesh, copied once a distinct device."""
@@ -109,10 +111,11 @@ class _Reads:
 
     def scores(self, pc: np.ndarray) -> np.ndarray:
         """The (B, Rc) int32 score block of the chunk ``pc``, on the host."""
-        parts = self._cross(pc)
-        if self.panel_sharded:
-            return gather(parts, dim=1)[:, :pc.shape[0]]
-        return gather(parts)[:self.b]
+        with annotate("search.scores"):
+            parts = self._cross(pc)
+            if self.panel_sharded:
+                return gather(parts, dim=1)[:, :pc.shape[0]]
+            return gather(parts)[:self.b]
 
     def topk(self, pc: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Top ``k`` (<= Rc) of the chunk ``pc`` for each read, on the host:
@@ -121,19 +124,21 @@ class _Reads:
         device (:func:`_topk`); a sharded panel's candidates carry
         their chunk-wide index, the pad rows are dropped and the shards'
         pools merge by (-score, index) on the host."""
-        if not self.panel_sharded:
-            tops = [_topk(s, k) for s in self._cross(pc)]
-            return (gather([v for v, _ in tops])[:self.b].astype(np.int64),
-                    gather([i for _, i in tops])[:self.b])
-        rc = pc.shape[0]
-        parts = self._cross(pc, min_per=k)
-        per = parts[0].shape[1]
-        tops = [_topk(s, k) for s in parts]
-        v = gather([v for v, _ in tops], dim=1).astype(np.int64)
-        i = gather([i + d * per for d, (_, i) in enumerate(tops)], dim=1)
-        v = np.where(i < rc, v, np.int64(NEG32))
-        order = np.lexsort((i, -v), axis=1)[:, :k]
-        return np.take_along_axis(v, order, axis=1), np.take_along_axis(i, order, axis=1)
+        with annotate("search.scores"):
+            if not self.panel_sharded:
+                tops = [_topk(s, k) for s in self._cross(pc)]
+                return (gather([v for v, _ in tops])[:self.b].astype(np.int64),
+                        gather([i for _, i in tops])[:self.b])
+            rc = pc.shape[0]
+            parts = self._cross(pc, min_per=k)
+            per = parts[0].shape[1]
+            tops = [_topk(s, k) for s in parts]
+            v = gather([v for v, _ in tops], dim=1).astype(np.int64)
+            i = gather([i + d * per for d, (_, i) in enumerate(tops)], dim=1)
+        with annotate("search.merge"):
+            v = np.where(i < rc, v, np.int64(NEG32))
+            order = np.lexsort((i, -v), axis=1)[:, :k]
+            return np.take_along_axis(v, order, axis=1), np.take_along_axis(i, order, axis=1)
 
 
 def _stream_best(reads_enc, panel_enc, params, algorithm, device, chunk, mesh=None,
@@ -154,16 +159,17 @@ def _stream_best(reads_enc, panel_enc, params, algorithm, device, chunk, mesh=No
         pc = panel_enc[lo:lo + chunk]
         kk = min(2, pc.shape[0])
         v, i = reads.topk(pc, kk)
-        c_arg = i[:, 0]
-        c_best = v[:, 0].astype(np.int32)
-        c_second = v[:, 1] if kk >= 2 else np.full(b, NEG32, np.int64)
-        upd = c_best > best                    # strict >: earlier chunk wins ties
-        # Top-2 merge of two disjoint candidate pools (exact).
-        second = np.maximum(np.minimum(best.astype(np.int64), c_best),
-                            np.maximum(second.astype(np.int64), c_second)
-                            ).astype(np.int32)
-        best = np.where(upd, c_best, best)
-        arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
+        with annotate("search.merge"):
+            c_arg = i[:, 0]
+            c_best = v[:, 0].astype(np.int32)
+            c_second = v[:, 1] if kk >= 2 else np.full(b, NEG32, np.int64)
+            upd = c_best > best                    # strict >: earlier chunk wins ties
+            # Top-2 merge of two disjoint candidate pools (exact).
+            second = np.maximum(np.minimum(best.astype(np.int64), c_best),
+                                np.maximum(second.astype(np.int64), c_second)
+                                ).astype(np.int32)
+            best = np.where(upd, c_best, best)
+            arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
     return arg, best, second
 
 
@@ -171,8 +177,9 @@ def _check_budget(m: int, n: int, pairs: int, affine: bool, device: torch.device
                   mesh) -> None:
     """``check_search_budget`` of a launch of ``pairs`` on ``device``, or on
     every device of ``mesh`` (each checked for the whole chunk)."""
-    for dev in (dict.fromkeys(mesh.devices) if mesh is not None else (device,)):
-        check_search_budget(m, n, pairs, affine, dev)
+    with annotate("search.budget"):
+        for dev in (dict.fromkeys(mesh.devices) if mesh is not None else (device,)):
+            check_search_budget(m, n, pairs, affine, dev)
 
 
 def _chunk_for(b: int, r: int, max_pairs: int) -> int:
@@ -386,19 +393,20 @@ def map_read_pairs(
     for lo in range(0, r, chunk):
         pc = panel_enc[lo:lo + chunk]
         s_f1, s_r1, s_f2, s_r2 = (mate.scores(pc).astype(np.int64) for mate in mates)
-        fr = s_f1 + s_r2
-        rf = s_r1 + s_f2
-        c_comb = np.maximum(fr, rf)
-        c_orient = rf > fr                     # FR wins layout ties
-        c_arg = np.argmax(c_comb, axis=1)      # first-win within the chunk
-        c_best = c_comb[rows, c_arg]
-        c_second = (np.partition(c_comb, -2, axis=1)[:, -2]
-                    if c_comb.shape[1] >= 2 else np.full(b, NEG))
-        upd = c_best > best                    # strict >: earlier chunk wins ties
-        second = np.maximum(np.minimum(best, c_best), np.maximum(second, c_second))
-        best = np.where(upd, c_best, best)
-        arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
-        orient = np.where(upd, c_orient[rows, c_arg], orient).astype(np.int8)
+        with annotate("search.merge"):
+            fr = s_f1 + s_r2
+            rf = s_r1 + s_f2
+            c_comb = np.maximum(fr, rf)
+            c_orient = rf > fr                     # FR wins layout ties
+            c_arg = np.argmax(c_comb, axis=1)      # first-win within the chunk
+            c_best = c_comb[rows, c_arg]
+            c_second = (np.partition(c_comb, -2, axis=1)[:, -2]
+                        if c_comb.shape[1] >= 2 else np.full(b, NEG))
+            upd = c_best > best                    # strict >: earlier chunk wins ties
+            second = np.maximum(np.minimum(best, c_best), np.maximum(second, c_second))
+            best = np.where(upd, c_best, best)
+            arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
+            orient = np.where(upd, c_orient[rows, c_arg], orient).astype(np.int8)
     mapq = _mapq_from_gap(best, np.where(second == NEG, NEG32, second), params)
     alns1 = alns2 = None
     if align:
@@ -435,44 +443,45 @@ def map_reads(
     alignments are in reverse-complement read coordinates (the SAM
     convention). ``mesh`` and ``panel_axis`` as in :func:`best_hits`.
     """
-    if params.matrix is not None and both_strands:
-        raise ValueError("both_strands mapping is DNA-only (custom "
-                         "substitution matrices have no complement)")
-    reads_enc = _encode(reads)
-    panel_enc = _encode(panel)
-    b = reads_enc.shape[0]
-    r = panel_enc.shape[0]
-    device = _resolve_placement(device, mesh)
-    if b == 0 or r == 0:
-        return SearchHits(np.full(b, -1, np.int32), np.full(b, NEG32, np.int32),
-                          np.zeros(b, np.int8),
-                          [unmapped_alignment() for _ in range(b)] if align else None,
-                          np.zeros(b, np.uint8))
-    algorithm = Algorithm(algorithm)
-    chunk = _chunk_for(b, r, max_pairs)
-    _check_budget(reads_enc.shape[1], panel_enc.shape[1], b * chunk, params.affine,
-                  device, mesh)
-    arg, best, second = _stream_best(reads_enc, panel_enc, params, algorithm,
-                                     device, chunk, mesh, panel_axis)
-    strand = np.zeros(b, dtype=np.int8)
-    if both_strands:
-        rc_enc = reverse_complement_codes(reads_enc)
-        rc_arg, rc_best, rc_second = _stream_best(rc_enc, panel_enc, params,
-                                                  algorithm, device, chunk, mesh,
-                                                  panel_axis)
-        rev = rc_best > best            # strict >: forward wins ties
-        # Top-2 merge across the two orientations' candidate pools.
-        second = np.maximum(np.minimum(best.astype(np.int64), rc_best),
-                            np.maximum(second.astype(np.int64), rc_second)
-                            ).astype(np.int32)
-        arg = np.where(rev, rc_arg, arg).astype(np.int32)
-        best = np.where(rev, rc_best, best)
-        strand = rev.astype(np.int8)
-        oriented = np.where(rev[:, None], rc_enc, reads_enc)
-    else:
-        oriented = reads_enc
-    alns = None
-    if align:
-        alns = _align_pairs(oriented, panel_enc[arg], params, algorithm, tie,
-                            backend, device, mesh)
-    return SearchHits(arg, best, strand, alns, _mapq_from_gap(best, second, params))
+    with annotate("search.map_reads"):
+        if params.matrix is not None and both_strands:
+            raise ValueError("both_strands mapping is DNA-only (custom "
+                             "substitution matrices have no complement)")
+        reads_enc = _encode(reads)
+        panel_enc = _encode(panel)
+        b = reads_enc.shape[0]
+        r = panel_enc.shape[0]
+        device = _resolve_placement(device, mesh)
+        if b == 0 or r == 0:
+            return SearchHits(np.full(b, -1, np.int32), np.full(b, NEG32, np.int32),
+                              np.zeros(b, np.int8),
+                              [unmapped_alignment() for _ in range(b)] if align else None,
+                              np.zeros(b, np.uint8))
+        algorithm = Algorithm(algorithm)
+        chunk = _chunk_for(b, r, max_pairs)
+        _check_budget(reads_enc.shape[1], panel_enc.shape[1], b * chunk, params.affine,
+                      device, mesh)
+        arg, best, second = _stream_best(reads_enc, panel_enc, params, algorithm,
+                                         device, chunk, mesh, panel_axis)
+        strand = np.zeros(b, dtype=np.int8)
+        if both_strands:
+            rc_enc = reverse_complement_codes(reads_enc)
+            rc_arg, rc_best, rc_second = _stream_best(rc_enc, panel_enc, params,
+                                                      algorithm, device, chunk, mesh,
+                                                      panel_axis)
+            rev = rc_best > best            # strict >: forward wins ties
+            # Top-2 merge across the two orientations' candidate pools.
+            second = np.maximum(np.minimum(best.astype(np.int64), rc_best),
+                                np.maximum(second.astype(np.int64), rc_second)
+                                ).astype(np.int32)
+            arg = np.where(rev, rc_arg, arg).astype(np.int32)
+            best = np.where(rev, rc_best, best)
+            strand = rev.astype(np.int8)
+            oriented = np.where(rev[:, None], rc_enc, reads_enc)
+        else:
+            oriented = reads_enc
+        alns = None
+        if align:
+            alns = _align_pairs(oriented, panel_enc[arg], params, algorithm, tie,
+                                backend, device, mesh)
+        return SearchHits(arg, best, strand, alns, _mapq_from_gap(best, second, params))
