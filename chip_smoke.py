@@ -985,10 +985,11 @@ def score_wall_split(name: str, params, r_np: np.ndarray, f_np: np.ndarray) -> d
     """``AlignmentEngine.score_alignments`` on the (B, m), (B, n) codes
     ``r_np``, ``f_np``, SW and NW, each of REPS calls split as it
     runs. CUDA events on the stream, recorded when the backend's scorer
-    starts, when ``cuda_score.score_batch_device`` starts and returns and
-    when the scorer returns, time its host-to-device copy of both code
-    arrays (copies from pageable memory, which the host waits for), the
-    kernel (the wrapper's host work and the launch included) and the
+    starts, when ``cuda_score.score_batch_device`` first starts and last
+    returns and when the scorer returns, time the copy of the first chunk's
+    codes to the card (staged in page-locked memory, which the launch
+    waits for), the kernels (the wrapper's host work, the launches and the
+    later chunks' copies, which overlap them, included) and the
     device-to-host copy of the scores; the host clock times the wall and
     the rest (encoding checks and the memory-plan gate before the scorer,
     the numpy view after it). Every part is a time measured in the call;
@@ -1009,13 +1010,15 @@ def score_wall_split(name: str, params, r_np: np.ndarray, f_np: np.ndarray) -> d
         event.record()
         marks[key] = (event, time.perf_counter())
 
-    def timed_kernel(*args):
-        mark("kernel")
-        out = kernel(*args)
+    def timed_kernel(*args, **kw):
+        if "kernel" not in marks:
+            mark("kernel")
+        out = kernel(*args, **kw)
         mark("kernel_end")
         return out
 
     def timed_scorer(*args):
+        marks.clear()
         mark("scorer")
         out = scorer(*args)
         mark("scorer_end")

@@ -205,3 +205,23 @@ def test_h2d_bytes_equal_the_traced_copies(card, tmp_path):
     assert copied > 0
     assert profiling.counters()["h2d_bytes"] == copied
     assert profiling.counters()["cells.score"] == 5 * 24 * 30
+
+
+@pytest.mark.card
+def test_score_chunks_count_the_plan(card, tmp_path):
+    """A batch of several waves: ``score.chunks`` equals the chunks of the
+    scorer's plan, and ``h2d_bytes`` the codes of the batch."""
+    from versalignlib_tpu_torch.ops import cuda_score
+
+    engine = AlignmentEngine(backend="cuda", device=card)
+    m, n = 24, 30
+    wave = cuda_score.wave_pairs(m, n, engine.params, SW, card)
+    b = 3 * wave + 11
+    reads, refs = _pairs(5, b, m, n)
+    engine.score_alignments(SW, reads[:7], refs[:7])         # builds the kernel
+    with profiling.trace(str(tmp_path)):
+        engine.score_alignments(SW, reads, refs)
+    chunks = len(cuda_score.chunk_plan(b, wave))
+    assert chunks == 3
+    assert profiling.counters()["score.chunks"] == chunks
+    assert profiling.counters()["h2d_bytes"] == b * (m + n)

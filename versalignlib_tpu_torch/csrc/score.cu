@@ -156,3 +156,25 @@ extern "C" int val_score_launch(const void *reads, const void *refs, const void 
         }
       }));
 }
+
+// The blocks of the instantiation that `local`, `affine`, `sub` and `cols`
+// select that one SM holds at once with `smem` bytes of dynamic shared
+// memory a block, into *blocks (ops/cuda_score.wave_pairs sizes the score
+// path's chunks by it). Returns the first CUDA error (0 on success).
+extern "C" int val_score_occupancy(int local, int affine, int cols, int sub, int smem,
+                                   int *blocks) {
+  if (smem < 0 || static_cast<size_t>(smem) > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(val::dispatch_group(
+      local, affine, false, sub, cols, [&](auto kL, auto kA, auto kC, auto kS, auto kCo) {
+        if constexpr (decltype(kC)::value) {
+          return cudaErrorInvalidValue;
+        } else {
+          const auto kernel = score_kernel<decltype(kL)::value, decltype(kA)::value,
+                                           decltype(kS)::value, decltype(kCo)::value>;
+          if (const cudaError_t err = val::allow_smem(kernel, smem); err != cudaSuccess)
+            return err;
+          return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+        }
+      }));
+}

@@ -121,3 +121,29 @@ def _ahead(chunks: Iterable[tuple], depth: int, stage) -> Iterator:
             queue.append(stage(item))
             break
         yield out
+
+
+class PinnedBuffers:
+    """Page-locked host buffers, one a slot, that a path's copies take in
+    turn and keep across calls, since pinning memory takes longer than the
+    copy it speeds up (a fresh ``pin_memory()`` a chunk made the search
+    paths slower). A slot grows when a call needs more; a buffer of more
+    than ``limit`` bytes (None: no limit) serves its call only.
+    :meth:`release` gives the kept buffers back."""
+
+    def __init__(self, slots: int, limit: int | None = None):
+        self.limit = limit
+        self._bufs: list[torch.Tensor | None] = [None] * slots
+
+    def take(self, slot: int, shape: tuple, dtype=torch.int32) -> torch.Tensor:
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        buf = self._bufs[slot]
+        if buf is None or buf.numel() < nbytes:
+            self._bufs[slot] = None   # free the smaller buffer first
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+            if self.limit is None or nbytes <= self.limit:
+                self._bufs[slot] = buf
+        return buf[:nbytes].view(dtype).view(shape)
+
+    def release(self) -> None:
+        self._bufs = [None] * len(self._bufs)

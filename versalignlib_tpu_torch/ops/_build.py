@@ -134,10 +134,15 @@ class CudaKernel:
                 self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch the kernel; raises if CUDA refused the launch."""
+    def call(self, *args) -> None:
+        """Call the entry, counting no launch (a query such as an
+        occupancy); raises if it returned a CUDA error."""
         rc = self._function()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}) failed: CUDA error {rc}")
+
+    def launch(self, *args) -> None:
+        """Launch the kernel; raises if CUDA refused the launch."""
+        self.call(*args)
         with self._count_lock:
             self.launches += 1

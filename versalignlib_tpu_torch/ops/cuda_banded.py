@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from versalignlib_tpu_torch.alphabet import valid_code_mask
+from versalignlib_tpu_torch.io.staging import PinnedBuffers
 from versalignlib_tpu_torch.ops import plain_banded
 from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.ops.plain_banded import BAND_PACK
@@ -261,32 +262,6 @@ def chunk_pairs_for(m: int, band: int, sm_count: int,
     return pairs // wave * wave if pairs >= wave else pairs
 
 
-class PinnedPair:
-    """Two page-locked host buffers that the rounds of a banded alignment
-    take in turn: the copy of round k+1 lands in one while the host decodes
-    round k from the other. A buffer of up to ``limit`` bytes is kept for
-    the next call, since pinning gigabytes takes longer than the copy it
-    speeds up; a larger one (a caller's own ``chunk_pairs``) serves its call
-    only. :meth:`release` gives the kept buffers back."""
-
-    def __init__(self, limit: int):
-        self.limit = limit
-        self._bufs: list[torch.Tensor | None] = [None, None]
-
-    def take(self, slot: int, shape: tuple, dtype=torch.int32) -> torch.Tensor:
-        nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
-        buf = self._bufs[slot]
-        if buf is None or buf.numel() < nbytes:
-            self._bufs[slot] = None   # free the smaller buffer first
-            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
-            if nbytes <= self.limit:
-                self._bufs[slot] = buf
-        return buf[:nbytes].view(dtype).view(shape)
-
-    def release(self) -> None:
-        self._bufs = [None, None]
-
-
 #: The pair of page-locked buffers the banded alignment path reuses, each
 #: kept up to one round's pointer bytes.
-PINNED = PinnedPair(CHUNK_PTR_BYTES)
+PINNED = PinnedBuffers(2, CHUNK_PTR_BYTES)

@@ -11,17 +11,23 @@ memory of a block, and whether the boundary columns leave it
 (:func:`edge_in_shared`); :func:`score_tables` builds the tables.
 
 A tensor on the CPU goes to :func:`plain.score_batch`; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. :class:`CudaScorer` feeds the kernel from
+numpy codes through a reused page-locked ring, in chunks of whole waves of
+the kernel (:func:`chunk_plan`, :func:`wave_pairs`) whose copies overlap the
+launches of the chunks before them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from versalignlib_tpu_torch.io.staging import PinnedBuffers
 from versalignlib_tpu_torch.ops import cuda_search, plain
 from versalignlib_tpu_torch.ops._build import CudaKernel
 from versalignlib_tpu_torch.ops.cuda_search import (LANES, PAIRS_PER_BLOCK, SMEM_BYTES,
@@ -35,6 +41,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: The score kernel; ``SCORE_KERNEL.launches`` counts its launches.
 SCORE_KERNEL = CudaKernel("score.cu", "val_score_launch", [_P] * 6 + [_I] * 13 + [_P])
+#: The blocks of a score launch's instantiation that one SM holds at once.
+SCORE_OCCUPANCY = CudaKernel("score.cu", "val_score_occupancy",
+                             [_I] * 5 + [ctypes.POINTER(ctypes.c_int)])
 
 
 def check_codes(reads: torch.Tensor, refs: torch.Tensor) -> None:
@@ -113,9 +122,11 @@ def score_tables(params: AlignmentParameters, device: torch.device):
 
 def score_batch_device(reads: torch.Tensor, refs: torch.Tensor,
                        params: AlignmentParameters,
-                       algorithm: Algorithm) -> torch.Tensor:
+                       algorithm: Algorithm,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Best score per pair: (B, m), (B, n) uint8 codes -> (B,) int32 on the
-    same device. An empty read or ref axis gives zeros.
+    same device. An empty read or ref axis gives zeros. On the card the
+    kernel writes into ``out`` where it is given, a (B,) int32 tensor there.
 
     On the card, 16 lanes score each pair (``csrc/score.cu``) on the codes
     as they are, pair-major. Default DNA scores that fit a signed byte go
@@ -141,7 +152,12 @@ def score_batch_device(reads: torch.Tensor, refs: torch.Tensor,
             slots = -(-b // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
             edge = torch.empty((slots, m, 2 if params.affine else 1), dtype=torch.int32,
                                device=dev)
-        out = torch.empty(b, dtype=torch.int32, device=dev)
+        if out is None:
+            out = torch.empty(b, dtype=torch.int32, device=dev)
+        elif out.shape != (b,) or out.dtype != torch.int32 or out.device != dev \
+                or not out.is_contiguous():
+            raise ValueError(f"out must be ({b},) int32 on {dev}, got {tuple(out.shape)} "
+                             f"{out.dtype} on {out.device}")
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -155,22 +171,123 @@ def score_batch_device(reads: torch.Tensor, refs: torch.Tensor,
         return out
 
 
+def wave_pairs(m: int, n: int, params: AlignmentParameters, algorithm: Algorithm,
+               device: torch.device) -> int:
+    """The pairs of m x n that one launch of ``csrc/score.cu`` under
+    ``params`` and ``algorithm`` keeps resident on every SM of ``device``
+    at once: 8 pairs a block, times the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for the launch's
+    instantiation and shared memory, :func:`launch_plan`), times the SMs."""
+    table, _, s = score_tables(params, device)
+    plan = launch_plan(m, n, params.affine, None if table is None else s)
+    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
+    return PAIRS_PER_BLOCK * _resident_blocks(device, local, params.affine, plan.cols,
+                                              plan.sub, plan.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: torch.device, local: bool, affine: bool, cols: int, sub: int,
+                     smem: int) -> int:
+    """Blocks of the instantiation resident on the whole card at once."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        SCORE_OCCUPANCY.call(int(local), int(affine), cols, sub, smem, ctypes.byref(blocks))
+    return max(1, blocks.value) * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def chunk_plan(b: int, wave: int) -> list[tuple[int, int]]:
+    """The row ranges [lo, hi) in which :class:`CudaScorer` copies and
+    scores a batch of ``b`` pairs, in order: one a wave of ``wave`` pairs
+    (:func:`wave_pairs`), the last a wave and the rest, whose blocks run in
+    that wave's tail as they would in one launch of the whole batch (a
+    launch of the rest alone left most SMs idle: B1 took 7-10% longer). A
+    batch below two waves is one range, so no range holds 2 * wave pairs
+    or more, whatever ``b``."""
+    if b == 0:
+        return []
+    edges = [c * wave for c in range(max(1, b // wave))] + [b]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+#: Slots of :class:`CudaScorer`'s page-locked ring: the host fills one while
+#: the other's chunk crosses to the card.
+RING_SLOTS = 2
+
+
 class CudaScorer:
     """Host wrapper: numpy codes in, numpy scores out, computed on
-    ``device``."""
+    ``device``.
+
+    On a card a call runs in the chunks of :func:`chunk_plan`. For each, the
+    host copies the chunk's read and ref codes (on torch's intra-op
+    threads) into a slot of a page-locked ring that the scorer keeps across
+    calls, waiting first for that slot's last copy to the card; the slot
+    goes to the card on a side stream, and the caller's current stream
+    waits for it and launches the kernel on the chunk's rows, so chunk
+    c + 1 crosses while chunk c is scored. One copy of the scores into a
+    kept page-locked buffer ends the call, which returns them as a new
+    array. A lock makes each call whole: threads that share a scorer never
+    share a slot. On the CPU the codes go to :func:`score_batch_device` as
+    they are."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
+        self._lock = threading.Lock()
+        # The ring's slots, then the scores' buffer.
+        self._pinned = PinnedBuffers(RING_SLOTS + 1)
+        self._side: torch.cuda.Stream | None = None
+        self._copied: list[torch.cuda.Event] = []
 
     def __call__(self, reads: np.ndarray, refs: np.ndarray,
                  params: AlignmentParameters, algorithm: Algorithm) -> np.ndarray:
         reads = np.ascontiguousarray(reads, np.uint8)
         refs = np.ascontiguousarray(refs, np.uint8)
+        if self.device.type == "cuda":
+            with self._lock:
+                return self._score_on_card(reads, refs, params, Algorithm(algorithm))
         with annotate("score.h2d"):
-            if self.device.type == "cuda":
-                count("h2d_bytes", reads.nbytes + refs.nbytes)
             reads_dev = torch.from_numpy(reads).to(self.device)
             refs_dev = torch.from_numpy(refs).to(self.device)
         out = score_batch_device(reads_dev, refs_dev, params, Algorithm(algorithm))
         with annotate("score.d2h"):
             return out.cpu().numpy()
+
+    def _score_on_card(self, reads: np.ndarray, refs: np.ndarray,
+                       params: AlignmentParameters, algorithm: Algorithm) -> np.ndarray:
+        src_reads, src_refs = torch.from_numpy(reads), torch.from_numpy(refs)
+        check_codes(src_reads, src_refs)
+        (b, m), n = reads.shape, refs.shape[1]
+        if b == 0 or m == 0 or n == 0:
+            return np.zeros(b, np.int32)
+        dev = self.device
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+            self._copied = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+        chunks = chunk_plan(b, wave_pairs(m, n, params, algorithm, dev))
+        count("score.chunks", len(chunks))
+        compute, side = torch.cuda.current_stream(dev), self._side
+        # Chunk c's codes are bytes lo * (m + n) to hi * (m + n): its reads, then its refs.
+        codes = torch.empty(b * (m + n), dtype=torch.uint8, device=dev)
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        codes.record_stream(side)
+        side.wait_stream(compute)       # what the compute stream did with the memory first
+        for c, (lo, hi) in enumerate(chunks):
+            slot, rows = c % RING_SLOTS, hi - lo
+            with annotate("score.h2d"):
+                self._copied[slot].synchronize()
+                host = self._pinned.take(slot, (rows * (m + n),), torch.uint8)
+                host[:rows * m].view(rows, m).copy_(src_reads[lo:hi])
+                host[rows * m:].view(rows, n).copy_(src_refs[lo:hi])
+                chunk = codes[lo * (m + n):hi * (m + n)]
+                with torch.cuda.stream(side):
+                    chunk.copy_(host, non_blocking=True)
+                    self._copied[slot].record(side)
+                count("h2d_bytes", host.numel())
+            compute.wait_event(self._copied[slot])
+            score_batch_device(chunk[:rows * m].view(rows, m), chunk[rows * m:].view(rows, n),
+                               params, algorithm, out=out[lo:hi])
+        with annotate("score.d2h"):
+            scores = self._pinned.take(RING_SLOTS, (b,), torch.int32)
+            scores.copy_(out, non_blocking=True)
+            compute.synchronize()
+            return scores.numpy().copy()

@@ -12,8 +12,9 @@ and a count one check: nothing is built or added.
 Spans are named ``<layer>.<step>`` (``engine.score_alignments``,
 ``score.h2d``, ``search.merge``, ``align.decode``, ...); a span's parent is
 the span that encloses it on its thread. Counters: ``h2d_bytes`` (bytes
-of host arrays copied to a card) and ``cells.score`` (B x m x n of every
-batch the score path scores).
+of host arrays copied to a card), ``cells.score`` (B x m x n of every
+batch the score path scores) and ``score.chunks`` (the chunks in which
+``CudaScorer`` copied and scored its batches on a card).
 """
 
 from __future__ import annotations
