@@ -85,3 +85,29 @@ def test_decode_batch_affine_raises_without_the_native_decoder(monkeypatch):
                             np.array([1]), np.array([2]), AlignmentParameters(
                                 gap_open_read=-4, gap_open_ref=-4),
                             Algorithm.SMITH_WATERMAN, np.array([2]))
+
+
+@pytest.mark.parametrize("pairs", [0, 1, 9])
+def test_the_alignment_list_equals_the_column_store_row_by_row(pairs):
+    """The decoder's columns as a list of ``Alignment`` (built from strings
+    decoded once and sliced) hold what the column store gives row by row,
+    for alignments and CIGARs of every length up to the columns' capacity,
+    and an empty one."""
+    from versalignlib_tpu_torch.types import AlignmentBatch
+
+    rng = np.random.default_rng(pairs)
+    cap, cigar_cap = 23, 3 * 23 + 16
+    meta = rng.integers(-5, 40, size=(pairs, 8)).astype(np.int32)
+    meta[:, 5] = rng.integers(0, cap + 1, size=pairs)
+    meta[:, 7] = rng.integers(0, cigar_cap + 1, size=pairs)
+    if pairs:
+        meta[0, 5] = meta[0, 7] = 0                     # an unmapped pair
+    read_g, ref_g = (np.zeros((pairs, cap), np.uint8) for _ in range(2))
+    cigar = np.zeros((pairs, cigar_cap), np.uint8)
+    for k, (aln_len, clen) in enumerate(meta[:, [5, 7]]):
+        read_g[k, :aln_len] = rng.choice(np.frombuffer(b"ACGTN-\xe9", np.uint8), aln_len)
+        ref_g[k, :aln_len] = rng.choice(np.frombuffer(b"acgtn-", np.uint8), aln_len)
+        cigar[k, :clen] = rng.choice(np.frombuffer(b"0123456789MIDSX=", np.uint8), clen)
+    got = native._results(read_g, ref_g, cigar, meta, False)
+    assert _fields(got) == _fields(AlignmentBatch(read_g, ref_g, cigar, meta))
+    assert native._results(read_g, ref_g, cigar, meta, True).meta is meta

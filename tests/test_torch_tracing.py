@@ -64,6 +64,11 @@ def _map_reads():
     search.map_reads(reads, genome[:576].reshape(9, 64), device="cpu", max_pairs=15)
 
 
+def _best_hits():
+    genome, reads = _genome_and_reads(4, 600, 5, 30)
+    search.best_hits(reads, genome[:576].reshape(9, 64), device="cpu", max_pairs=15)
+
+
 #: Each path, the spans it opens on the CPU and each span's parent.
 PATHS = {
     "score": (_score, {"engine.score_alignments": None,
@@ -85,10 +90,17 @@ PATHS = {
                                 "refmap.shift": "refmap.map_to_reference"}),
     "map_reads": (_map_reads, {"search.map_reads": None,
                                "search.budget": "search.map_reads",
-                               "search.stage": "search.map_reads",
-                               "search.scores": "search.map_reads",
-                               "search.merge": "search.map_reads",
+                               "search.stream": "search.map_reads",
+                               "search.stage": "search.stream",
+                               "search.scores": "search.stream",
+                               "search.merge": "search.stream",
                                "align.batch": "search.map_reads"}),
+    "best_hits": (_best_hits, {"search.budget": None,
+                               "search.stream": None,
+                               "search.stage": "search.stream",
+                               "search.scores": "search.stream",
+                               "search.merge": "search.stream",
+                               "align.batch": None}),
 }
 
 
@@ -131,6 +143,13 @@ def test_spans_nest_inside_their_parents(path):
         assert sum(e.name == "refmap.search" for e in spans) == 2
         assert sum(e.name == "search.scores" for e in spans) >= 4
         assert sum(e.name == "search.merge" for e in spans) >= 4
+    if path in ("map_reads", "best_hits"):
+        # One stream a call over every strand (map_reads: both), three
+        # chunks a strand (9 entries, 3 a chunk), each searched and folded.
+        strands = 2 if path == "map_reads" else 1
+        assert sum(e.name == "search.stream" for e in spans) == 1
+        assert sum(e.name == "search.scores" for e in spans) == 3 * strands
+        assert sum(e.name == "search.merge" for e in spans) == 3 * strands
 
 
 def test_counters_count_the_cells_scored_and_no_copy_on_the_cpu():

@@ -181,9 +181,7 @@ def _decode(ptr_arr, kind, pack, reads, refs, start_read_pos, start_ref_pos, par
                          "carry gapped strings)")
     aln_cap = m + n
     cigar_cap = 3 * aln_cap + 16
-    read_g = np.zeros((b, aln_cap), dtype=np.uint8) if gapped else None
-    ref_g = np.zeros((b, aln_cap), dtype=np.uint8) if gapped else None
-    cigar = np.zeros((b, cigar_cap), dtype=np.uint8)
+    read_g, ref_g, cigar = _columns(b, aln_cap, cigar_cap, gapped, raw)
     meta = np.zeros((b, 8), dtype=np.int32)
 
     if n_threads is None:
@@ -245,35 +243,56 @@ def replay_records_native(
                    algorithm, scores, read_texts, ref_texts, n_threads, False, raw, gapped)
 
 
+_scratch = threading.local()
+
+
+def _columns(b: int, aln_cap: int, cigar_cap: int, gapped: bool, raw: bool):
+    """The decoder's (b, aln_cap) gapped and (b, cigar_cap) CIGAR columns.
+    Returned columns (``raw``) are fresh and zeroed, their tails NUL. Else
+    they are views of this thread's scratch, kept and grown across calls,
+    since :func:`_results` reads only what the decoder wrote: a batch's
+    columns are some megabytes, which a fresh allocation zeroes or faults
+    in page by page on every call."""
+    if raw:
+        return (np.zeros((b, aln_cap), dtype=np.uint8) if gapped else None,
+                np.zeros((b, aln_cap), dtype=np.uint8) if gapped else None,
+                np.zeros((b, cigar_cap), dtype=np.uint8))
+    sizes = (b * aln_cap, b * aln_cap, b * cigar_cap)
+    buf = getattr(_scratch, "buf", None)
+    if buf is None or buf.size < sum(sizes):
+        buf = _scratch.buf = np.empty(sum(sizes), dtype=np.uint8)
+    read_g = buf[:sizes[0]].reshape(b, aln_cap)
+    ref_g = buf[sizes[0]:sizes[0] + sizes[1]].reshape(b, aln_cap)
+    cigar = buf[sizes[0] + sizes[1]:sum(sizes)].reshape(b, cigar_cap)
+    return read_g, ref_g, cigar
+
+
 def _results(read_g, ref_g, cigar, meta, raw: bool):
     """The decoder's columns as an :class:`AlignmentBatch` (``raw``) or a
-    list of :class:`Alignment`."""
+    list of :class:`Alignment`.
+
+    The list is built from three strings decoded once, over the columns the
+    longest alignment and CIGAR use, and sliced per pair: one object per
+    pair is all the loop allocates beside its strings."""
     if raw:
         return AlignmentBatch(read_g, ref_g, cigar, meta)
-    b, aln_cap = read_g.shape
-    cigar_cap = cigar.shape[1]
+    buffer_end = read_g.shape[1] - 1
+    rows = meta.tolist()
+    width = max((row[5] for row in rows), default=0)
+    cigar_width = max((row[7] for row in rows), default=0)
+    # A strided tobytes copies element by element: copy the columns first.
+    # Past each pair's own length the columns may hold any byte (scratch),
+    # so all three decode as latin-1; the CIGARs themselves are ASCII.
+    read_s = np.ascontiguousarray(read_g[:, :width]).tobytes().decode("latin-1")
+    ref_s = np.ascontiguousarray(ref_g[:, :width]).tobytes().decode("latin-1")
+    cigar_s = np.ascontiguousarray(cigar[:, :cigar_width]).tobytes().decode("latin-1")
     out = []
-    rg_bytes = read_g.tobytes()
-    fg_bytes = ref_g.tobytes()
-    cg_bytes = cigar.tobytes()
-    for k in range(b):
-        (score, rs, re_, fs, fe, aln_len, buf_start, clen) = (int(x) for x in meta[k])
-        base = k * aln_cap
-        cb = k * cigar_cap
-        out.append(
-            Alignment(
-                read=rg_bytes[base : base + aln_len].decode("latin-1"),
-                ref=fg_bytes[base : base + aln_len].decode("latin-1"),
-                score=score,
-                cigar=cg_bytes[cb : cb + clen].decode("ascii"),
-                read_start=rs,
-                read_end=re_,
-                ref_start=fs,
-                ref_end=fe,
-                buffer_start=buf_start,
-                buffer_end=aln_cap - 1,
-            )
-        )
+    base = cb = 0
+    for score, rs, re_, fs, fe, aln_len, buf_start, clen in rows:
+        out.append(Alignment(read_s[base:base + aln_len], ref_s[base:base + aln_len], score,
+                             cigar_s[cb:cb + clen], rs, re_, fs, fe, buf_start, buffer_end))
+        base += width
+        cb += cigar_width
     return out
 
 

@@ -193,6 +193,7 @@ def cross_scores_device(reads: torch.Tensor, refs: torch.Tensor,
         raise ValueError(f"reads on {reads.device}, refs on {refs.device}")
     b, m = reads.shape
     r, n = refs.shape
+    count("cells.search", b * r * m * n)
     if b == 0 or r == 0 or m == 0 or n == 0:
         return torch.zeros((b, r), dtype=torch.int32, device=reads.device)
     if reads.device.type == "cpu":

@@ -53,6 +53,17 @@ def put(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def put_async(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device`` without waiting: on a card staged into
+    page-locked memory and copied behind the work queued on the device's
+    current stream, the host returning at once; on the CPU a view of it."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cpu":
+        return t
+    count("h2d_bytes", t.nbytes)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def put_shards(x: np.ndarray, mesh: Mesh) -> list[torch.Tensor]:
     """The row shards of ``x`` (:func:`shard_rows`), shard d on device d."""
     return [put(s, dev) for s, dev in zip(shard_rows(x, mesh.size), mesh.devices)]
@@ -70,6 +81,31 @@ def gather(parts: list[torch.Tensor], dim: int = 0) -> np.ndarray:
     other devices keep running."""
     host = [p.cpu() for p in parts]
     return (host[0] if len(host) == 1 else torch.cat(host, dim=dim)).numpy()
+
+
+def gather_later(parts: list[torch.Tensor], dim: int = 0):
+    """:func:`gather` without waiting yet: each card's copy to the host is
+    queued into page-locked memory behind the work on the card's current
+    stream. Returns a function that waits for those copies and returns what
+    :func:`gather` returns."""
+    if all(p.device.type == "cpu" for p in parts):
+        return lambda: gather(parts, dim)
+    host, events = [], []
+    for p in parts:
+        h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+        with on_device(p.device):
+            h.copy_(p, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(p.device))
+        host.append(h)
+        events.append(done)
+
+    def wait() -> np.ndarray:
+        for done in events:
+            done.synchronize()
+        return (host[0] if len(host) == 1 else torch.cat(host, dim=dim)).numpy()
+
+    return wait
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,8 @@ On the card the cross product never materialises: the one-vs-many kernel
 the R panel entries, and writes the (B, R) scores. The panel streams
 through in chunks bounded by ``max_pairs``; each chunk's top-2 is taken on
 the card with a stable order (equal scores keep the lower panel index, as
-``lax.top_k`` does), and the running best folds on the host between chunks.
+``lax.top_k`` does), and the running best folds on the host as each chunk
+lands, while the card scores the chunks queued after it.
 Alignment happens once per read, on the winning pair only, through the
 port's backend (``csrc/align.cu`` or ``csrc/align_affine.cu``).
 
@@ -20,6 +21,7 @@ Entry points run on the card (``device="cuda"``, raising without one);
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -29,15 +31,20 @@ from versalignlib_tpu_torch.alphabet import pad_and_encode, reverse_complement_c
 from versalignlib_tpu_torch.dispatch import _resolve_placement, get_backend
 from versalignlib_tpu_torch.ops import cuda_search
 from versalignlib_tpu_torch.parallel.distributed import (distributed_align_batch, gather,
-                                                         on_device, put, put_shards,
-                                                         shard_rows)
+                                                         gather_later, on_device, put,
+                                                         put_async, put_shards, shard_rows)
 from versalignlib_tpu_torch.parallel.mesh import Mesh
 from versalignlib_tpu_torch.params import DEFAULT_PARAMETERS, AlignmentParameters
 from versalignlib_tpu_torch.types import Algorithm, Alignment, TieBreak
 from versalignlib_tpu_torch.utils.capabilities import check_search_budget
-from versalignlib_tpu_torch.utils.profiling import annotate
+from versalignlib_tpu_torch.utils.profiling import annotate, count
 
 NEG32 = np.iinfo(np.int32).min
+
+#: Panel chunks whose search :func:`_stream_best` keeps queued on the card
+#: ahead of its host fold, so that the fold of one chunk, and the staging
+#: of the next, run while the card scores the queued ones.
+AHEAD = 2
 
 
 def unmapped_alignment() -> Alignment:
@@ -89,19 +96,21 @@ class _Reads:
             else:
                 self.shards = put_shards(reads_enc, self.mesh)
 
-    def _replicas(self, x: np.ndarray) -> list[torch.Tensor]:
-        """``x`` on every device of the mesh, copied once a distinct device."""
-        copies = {dev: put(x, dev) for dev in dict.fromkeys(self.mesh.devices)}
+    def _replicas(self, x: np.ndarray, stage=put) -> list[torch.Tensor]:
+        """``x`` on every device of the mesh, copied once a distinct device
+        by ``stage`` (``put``, or ``put_async``)."""
+        copies = {dev: stage(x, dev) for dev in dict.fromkeys(self.mesh.devices)}
         return [copies[dev] for dev in self.mesh.devices]
 
-    def _cross(self, pc: np.ndarray, min_per: int = 1) -> list[torch.Tensor]:
+    def _cross(self, pc: np.ndarray, min_per: int = 1, stage=put) -> list[torch.Tensor]:
         """Every shard's (B_d, Rc_d) int32 scores against the chunk ``pc`` on
-        its device; a sharded chunk is padded to ``min_per`` rows a shard."""
+        its device, copied there by ``stage``; a sharded chunk is padded to
+        ``min_per`` rows a shard."""
         if self.panel_sharded:
-            pools = [put(x, dev) for x, dev in zip(shard_rows(pc, self.mesh.size, min_per),
-                                                   self.mesh.devices)]
+            pools = [stage(x, dev) for x, dev in zip(shard_rows(pc, self.mesh.size, min_per),
+                                                     self.mesh.devices)]
         else:
-            pools = self._replicas(pc)
+            pools = self._replicas(pc, stage)
         out = []
         for r, pool, dev in zip(self.shards, pools, self.mesh.devices):
             with on_device(dev):
@@ -140,37 +149,77 @@ class _Reads:
             order = np.lexsort((i, -v), axis=1)[:, :k]
             return np.take_along_axis(v, order, axis=1), np.take_along_axis(i, order, axis=1)
 
+    def queue_topk(self, pc: np.ndarray, k: int):
+        """:meth:`topk` of the chunk ``pc`` queued without waiting: the chunk
+        staged through page-locked memory (``put_async``), its scores and
+        top ``k`` queued on the devices, and their copies to the host queued
+        behind them. Returns a function that waits for those copies and
+        returns what :meth:`topk` returns. A panel sharded over the mesh is
+        searched at once, since its host merge needs every shard.
 
-def _stream_best(reads_enc, panel_enc, params, algorithm, device, chunk, mesh=None,
+        :meth:`topk` keeps the pageable copy, whose transfer CUDA overlaps
+        with its own staging: where the host waits for each chunk
+        (``refmap``'s windows), a copy into page-locked memory first only
+        adds a pass over the chunk."""
+        if self.panel_sharded:
+            tops = self.topk(pc, k)
+            return lambda: tops
+        with annotate("search.scores"):
+            tops = [_topk(s, k) for s in self._cross(pc, stage=put_async)]
+            values = gather_later([v for v, _ in tops])
+            index = gather_later([i for _, i in tops])
+        return lambda: (values()[:self.b].astype(np.int64), index()[:self.b])
+
+
+def _stream_best(batches, panel_enc, params, algorithm, device, chunk, mesh=None,
                  panel_axis: str = "reads"):
-    """Running top-2 fold over panel chunks.
+    """Running top-2 fold over panel chunks, for each read batch of
+    ``batches`` (in ``map_reads`` the reads and their reverse complements).
 
-    Returns (arg (B,), best (B,), second (B,)): the best entry's index and
-    score plus the second-best score over different panel entries (int32
-    min when the panel has a single entry), the input to the MAPQ gap.
+    Every batch is staged first; then each (batch, chunk) search is queued
+    on the card in that order (``_Reads.queue_topk``), at most
+    :data:`AHEAD` ahead of the host, which folds each chunk's top-2 into
+    its batch's running top-2 in chunk order as the chunk lands.
+
+    Returns, for each batch, (arg (B,), best (B,), second (B,)): the best
+    entry's index and score plus the second-best score over different panel
+    entries (int32 min when the panel has a single entry), the input to the
+    MAPQ gap.
     """
-    b = reads_enc.shape[0]
-    r = panel_enc.shape[0]
-    reads = _Reads(reads_enc, params, algorithm, device, mesh, panel_axis)
-    best = np.full(b, NEG32, dtype=np.int32)
-    second = np.full(b, NEG32, dtype=np.int32)
-    arg = np.zeros(b, dtype=np.int32)
-    for lo in range(0, r, chunk):
-        pc = panel_enc[lo:lo + chunk]
-        kk = min(2, pc.shape[0])
-        v, i = reads.topk(pc, kk)
-        with annotate("search.merge"):
-            c_arg = i[:, 0]
-            c_best = v[:, 0].astype(np.int32)
-            c_second = v[:, 1] if kk >= 2 else np.full(b, NEG32, np.int64)
-            upd = c_best > best                    # strict >: earlier chunk wins ties
-            # Top-2 merge of two disjoint candidate pools (exact).
-            second = np.maximum(np.minimum(best.astype(np.int64), c_best),
-                                np.maximum(second.astype(np.int64), c_second)
-                                ).astype(np.int32)
-            best = np.where(upd, c_best, best)
-            arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
-    return arg, best, second
+    with annotate("search.stream"):
+        r = panel_enc.shape[0]
+        staged = [_Reads(x, params, algorithm, device, mesh, panel_axis) for x in batches]
+        folds = [(np.zeros(x.shape[0], dtype=np.int32), np.full(x.shape[0], NEG32, np.int32),
+                  np.full(x.shape[0], NEG32, np.int32)) for x in batches]
+
+        def fold(j, lo, kk, landed):
+            v, i = landed()
+            arg, best, second = folds[j]
+            with annotate("search.merge"):
+                c_arg = i[:, 0]
+                c_best = v[:, 0].astype(np.int32)
+                c_second = v[:, 1] if kk >= 2 else np.full(v.shape[0], NEG32, np.int64)
+                upd = c_best > best                    # strict >: earlier chunk wins ties
+                # Top-2 merge of two disjoint candidate pools (exact).
+                second = np.maximum(np.minimum(best.astype(np.int64), c_best),
+                                    np.maximum(second.astype(np.int64), c_second)
+                                    ).astype(np.int32)
+                best = np.where(upd, c_best, best)
+                arg = np.where(upd, lo + c_arg, arg).astype(np.int32)
+            folds[j] = (arg, best, second)
+
+        queued = collections.deque()
+        for j, reads in enumerate(staged):
+            for lo in range(0, r, chunk):
+                pc = panel_enc[lo:lo + chunk]
+                kk = min(2, pc.shape[0])
+                count("search.chunks")
+                queued.append((j, lo, kk, reads.queue_topk(pc, kk)))
+                if len(queued) > AHEAD:
+                    fold(*queued.popleft())
+        while queued:
+            fold(*queued.popleft())
+        return folds
 
 
 def _check_budget(m: int, n: int, pairs: int, affine: bool, device: torch.device,
@@ -270,8 +319,8 @@ def best_hits(
     chunk = _chunk_for(b, r, max_pairs)
     _check_budget(reads_enc.shape[1], panel_enc.shape[1], b * chunk, params.affine,
                   device, mesh)
-    arg, best, _ = _stream_best(reads_enc, panel_enc, params, algorithm, device, chunk,
-                                mesh, panel_axis)
+    (arg, best, _), = _stream_best([reads_enc], panel_enc, params, algorithm, device,
+                                   chunk, mesh, panel_axis)
     if not align:
         return arg, best, None
     alns = _align_pairs(reads_enc, panel_enc[arg], params, algorithm, tie,
@@ -461,14 +510,16 @@ def map_reads(
         chunk = _chunk_for(b, r, max_pairs)
         _check_budget(reads_enc.shape[1], panel_enc.shape[1], b * chunk, params.affine,
                       device, mesh)
-        arg, best, second = _stream_best(reads_enc, panel_enc, params, algorithm,
-                                         device, chunk, mesh, panel_axis)
-        strand = np.zeros(b, dtype=np.int8)
+        batches = [reads_enc]
         if both_strands:
             rc_enc = reverse_complement_codes(reads_enc)
-            rc_arg, rc_best, rc_second = _stream_best(rc_enc, panel_enc, params,
-                                                      algorithm, device, chunk, mesh,
-                                                      panel_axis)
+            batches.append(rc_enc)
+        folds = _stream_best(batches, panel_enc, params, algorithm, device, chunk, mesh,
+                             panel_axis)
+        arg, best, second = folds[0]
+        strand = np.zeros(b, dtype=np.int8)
+        if both_strands:
+            rc_arg, rc_best, rc_second = folds[1]
             rev = rc_best > best            # strict >: forward wins ties
             # Top-2 merge across the two orientations' candidate pools.
             second = np.maximum(np.minimum(best.astype(np.int64), rc_best),

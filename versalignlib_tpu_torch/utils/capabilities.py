@@ -44,7 +44,20 @@ def free_device_bytes(device: torch.device) -> int:
     """Bytes a new allocation on ``device`` can take: what CUDA
     reports free plus what PyTorch's caching allocator holds unused."""
     free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return free + _cached_spare_bytes(device)
+
+
+def _cached_spare_bytes(device: torch.device) -> int:
+    """What PyTorch's caching allocator holds unused on ``device``."""
+    return torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def _fits(need: int, device: torch.device) -> bool:
+    """Whether ``need`` bytes fit in :func:`free_device_bytes`. The
+    allocator's unused bytes are looked at first: where they hold ``need``,
+    as they do once a repeated launch has run, CUDA's free-memory
+    query (a millisecond or more on the host, the card idle) is skipped."""
+    return need <= _cached_spare_bytes(device) or need <= free_device_bytes(device)
 
 
 def check_search_budget(m: int, n: int, pairs: int, affine: bool,
@@ -58,8 +71,8 @@ def check_search_budget(m: int, n: int, pairs: int, affine: bool,
     from versalignlib_tpu_torch.ops.cuda_search import search_mem_plan
 
     need = search_mem_plan(n, pairs, affine, m)
-    free = free_device_bytes(device)
-    if need > free:
+    if not _fits(need, device):
+        free = free_device_bytes(device)
         raise ValueError(
             f"dense search kernel needs {need / 2**20:.0f}MB of device memory "
             f"for {pairs} {m}x{n} sequence pairs; {device} has "
@@ -74,8 +87,8 @@ def check_banded_budget(plan_bytes: int, device: torch.device) -> None:
     running out of memory. Nothing to check off the card."""
     if device.type != "cuda":
         return
-    free = free_device_bytes(device)
-    if plan_bytes > free:
+    if not _fits(plan_bytes, device):
+        free = free_device_bytes(device)
         raise ValueError(
             f"banded kernel needs {plan_bytes / 2**20:.0f}MB of device memory; "
             f"{device} has {free / 2**20:.0f}MB free. Align fewer pairs per "

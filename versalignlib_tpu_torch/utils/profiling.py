@@ -13,8 +13,11 @@ Spans are named ``<layer>.<step>`` (``engine.score_alignments``,
 ``score.h2d``, ``search.merge``, ``align.decode``, ...); a span's parent is
 the span that encloses it on its thread. Counters: ``h2d_bytes`` (bytes
 of host arrays copied to a card), ``cells.score`` (B x m x n of every
-batch the score path scores) and ``score.chunks`` (the chunks in which
-``CudaScorer`` copied and scored its batches on a card).
+batch the score path scores), ``score.chunks`` (the chunks in which
+``CudaScorer`` copied and scored its batches on a card), ``cells.search``
+(B x R x m x n of every one-vs-many score block, padded shapes) and
+``search.chunks`` (the panel chunks ``search`` folds into its running
+top-2).
 """
 
 from __future__ import annotations
